@@ -7,14 +7,19 @@ takes the reference tree with every leaf already a numpy array
 (``jax.tree.map(np.asarray, params)``) and returns the port's params, so
 both packages can run the same model.  :func:`csr_from_numpy` carries an
 already-pruned reference CSR across as ``(row_ptr, col_ind, vals,
-shape)``.  Nothing here imports JAX.
+shape)``, and :func:`sparse_mlp_from_numpy` a whole pruned MLP (the
+reference's ``prune_mlp`` dict), so both packages fine-tune the same
+patterns from the same values.  Nothing here imports JAX.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core import PlanPolicy
 from repro_torch.core.csr import CSR
+from repro_torch.engine import get_plan
+from repro_torch.models.sparse import SparseLinear
 
 
 def _tensor(x, device) -> torch.Tensor:
@@ -54,3 +59,16 @@ def csr_from_numpy(row_ptr, col_ind, vals, shape, device="cuda") -> CSR:
     return CSR(_tensor(np.asarray(row_ptr, np.int32), device),
                _tensor(np.asarray(col_ind, np.int32), device),
                _tensor(vals, device), tuple(int(s) for s in shape))
+
+
+def sparse_mlp_from_numpy(layers: dict, policy=None,
+                          device="cuda") -> dict:
+    """A reference ``prune_mlp`` dict, each ``SparseLinear``'s CSR given as
+    numpy ``(row_ptr, col_ind, vals, shape)`` → the port's SparseLinear
+    layers, each with its engine-cached plan (``policy``, default
+    ``PlanPolicy()``: with the transpose the backward needs)."""
+    out = {}
+    for name, (row_ptr, col_ind, vals, shape) in layers.items():
+        csr = csr_from_numpy(row_ptr, col_ind, vals, shape, device=device)
+        out[name] = SparseLinear(csr, get_plan(csr, policy or PlanPolicy()))
+    return out

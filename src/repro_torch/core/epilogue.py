@@ -6,7 +6,9 @@ with each stage optional.  The spec carries only flags and constants; the
 operand tensors (``bias (m,)``, ``residual (..., m, n)``) travel as call
 arguments.  :func:`apply_epilogue` is the single implementation of the
 math for the plain versions; the CUDA kernels apply the same formula at
-their output write (``csrc/spmm_common.cuh``).  gelu is the tanh
+their output write (``csrc/spmm_common.cuh``).
+:func:`activation_grad` is its derivative for the backward of the
+differentiable SpMM.  gelu is the tanh
 approximation everywhere, as ``jax.nn.gelu``'s default in the reference.
 """
 from __future__ import annotations
@@ -54,6 +56,27 @@ def activation_fn(name: str):
         return F.relu
     if name == "gelu":
         return lambda x: F.gelu(x, approximate="tanh")
+    raise ValueError(f"unknown epilogue activation {name!r}")
+
+
+def activation_grad(name: str, pre: torch.Tensor,
+                    g: torch.Tensor) -> torch.Tensor:
+    """``g · act'(pre)``: the cotangent through the activation at ``pre``.
+
+    relu passes ``g`` where ``pre > 0`` (0 at 0, as ``jax.nn.relu``);
+    gelu is the derivative of the tanh form, in closed form:
+    ``0.5 (1 + t) + 0.5 x (1 - t²) √(2/π) (1 + 3·0.044715 x²)`` with
+    ``t = tanh(√(2/π) (x + 0.044715 x³))``.
+    """
+    if name == "relu":
+        return torch.where(pre > 0, g, 0)
+    if name == "gelu":
+        k = 0.7978845608028654                      # sqrt(2 / pi)
+        x2 = pre * pre
+        t = torch.tanh(k * (pre + 0.044715 * x2 * pre))
+        d = 0.5 * (1 + t) + 0.5 * pre * (1 - t * t) * k * (
+            1 + 3 * 0.044715 * x2)
+        return g * d
     raise ValueError(f"unknown epilogue activation {name!r}")
 
 

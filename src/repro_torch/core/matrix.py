@@ -95,7 +95,8 @@ class SparseMatrix:
                *, bias: torch.Tensor | None = None,
                residual: torch.Tensor | None = None) -> torch.Tensor:
         """C = A @ B (``b`` (..., k, n) → (..., m, n)).  ``bias``/
-        ``residual`` feed the fused epilogue (see ``execute_plan``)."""
+        ``residual`` feed the fused epilogue; differentiable in ``b`` and
+        the values (see ``execute_plan``)."""
         plan = self.spmm_plan
         if plan is None:
             from repro_torch.engine import get_plan

@@ -1,4 +1,5 @@
-"""Public SpMM API: registry-dispatched, plan-once/execute-many, batched.
+"""Public SpMM API: registry-dispatched, plan-once/execute-many, batched,
+and differentiable.
 
     C = spmm(A, B)                             # auto: the §5.4 rule
     C = spmm(A, B, PlanPolicy(method="merge"))          # force a method
@@ -10,11 +11,14 @@
     C = execute_plan(plan, A.vals, Bs)         # Bs (batch, k, n): one plan,
                                                # many problems, one launch
 
-This slice ports the forward.  Gradients (the reference's custom VJP:
-``dB`` through the transpose merge plan, ``dvals`` through SDDMM) come
-with the training slice; until then a kernel execution that autograd
-would need to differentiate raises instead of returning a result with no
-gradient.
+Execution is differentiable in ``vals``, ``B``, ``bias`` and ``residual``
+through a ``torch.autograd.Function`` (the reference's custom VJP):
+``dB = Aᵀ @ dC`` runs the merge kernel on the plan's transpose (CSC-view)
+merge plan, and ``dvals`` the SDDMM kernel over the pattern
+(``repro_torch.kernels.sddmm``), for both implementations.  The kernel
+gradients need a plan with the transpose (``PlanPolicy(
+with_transpose=True)``, the default); a forward-only plan stays
+differentiable through ordinary autograd on the plain version only.
 """
 from __future__ import annotations
 
@@ -24,7 +28,7 @@ import torch
 
 from .config import ExecutionConfig, PlanPolicy, torch_dtype
 from .csr import CSR
-from .epilogue import Epilogue
+from .epilogue import Epilogue, activation_grad, apply_epilogue
 from .plan import SpmmPlan
 
 
@@ -104,6 +108,92 @@ def _needs_grad(*xs) -> bool:
         x is not None and x.requires_grad for x in xs)
 
 
+def _forward(meta, fwd, vals, b, exec: ExecutionConfig, bias, residual):
+    return _registry().get_method(meta.method).execute(
+        meta, fwd, vals, b, impl=exec.impl, epilogue=exec.epilogue,
+        bias=bias, residual=residual, acc_dtype=torch_dtype(exec.acc_dtype),
+        out_dtype=torch_dtype(exec.out_dtype))
+
+
+class _ExecuteFn(torch.autograd.Function):
+    """``execute_plan`` with the reference's backward
+    (``repro.core.spmm._execute_vjp``): dB through the transpose merge
+    plan, dvals through SDDMM, the epilogue's chain rule around them."""
+
+    @staticmethod
+    def forward(ctx, plan, exec, vals, b, bias, residual):
+        meta, ep = plan.meta, exec.epilogue
+        ctx.plan, ctx.exec = plan, exec
+        ctx.bias_dtype = None if bias is None else bias.dtype
+        ctx.res_dtype = None if residual is None else residual.dtype
+        if ep is None or ep.activation == "none":
+            # Linear tail: fully fused forward; the backward needs no extra
+            # saved intermediate (+bias/*scale/+residual are dc-algebra).
+            ctx.save_for_backward(vals, b, None)
+            return _forward(meta, plan.fwd, vals, b, exec, bias, residual)
+        # Nonlinear activation: fuse up to the pre-activation (C + bias, in
+        # acc precision) and save it — the backward derives act'(pre) from
+        # it.  The act/scale/residual tail runs outside the kernel here;
+        # the forward-only path (no grad) keeps the full fusion.
+        pre_ep = dataclasses.replace(ep, activation="none", scale=None,
+                                     residual=False)
+        pre_exec = dataclasses.replace(
+            exec, epilogue=None if pre_ep.is_identity() else pre_ep,
+            out_dtype=exec.acc_dtype)
+        pre = _forward(meta, plan.fwd, vals, b, pre_exec,
+                       bias if ep.bias else None, None)
+        ctx.save_for_backward(vals, b, pre)
+        tail = dataclasses.replace(ep, bias=False)
+        out = apply_epilogue(pre, tail, None,
+                             residual if ep.residual else None)
+        return out.to(torch_dtype(exec.out_dtype))
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dc):
+        from repro_torch.kernels import ops
+        vals, b, pre = ctx.saved_tensors
+        plan, exec = ctx.plan, ctx.exec
+        meta, ep = plan.meta, exec.epilogue
+        need_vals, need_b, need_bias, need_res = ctx.needs_input_grad[2:]
+        # Epilogue chain rule, peeled outside-in: out = act(C + bias) *
+        # scale + residual  ⇒  d_residual = dc;  g = act'(pre) · (dc ·
+        # scale) is the cotangent of C (and of bias, row-summed).
+        d_res = dc.to(ctx.res_dtype) if need_res else None
+        g = dc.to(torch_dtype(exec.acc_dtype))
+        if ep is not None:
+            if ep.scale is not None:
+                g = g * ep.scale
+            if ep.activation != "none":
+                g = activation_grad(ep.activation, pre, g)
+        # The kernels take row-major operands; dc arrives as a transposed
+        # view from SparseLinear's (W @ xᵀ)ᵀ.
+        g = g.contiguous()
+        d_bias = None
+        if need_bias:
+            # The bias is shared across n and every leading batch dim.
+            d_bias = g.sum(dim=tuple(d for d in range(g.dim())
+                                     if d != g.dim() - 2))
+            d_bias = d_bias.to(ctx.bias_dtype)
+        db = None
+        if need_b:
+            # dB = Aᵀ @ g through the transpose merge plan: the CSC view
+            # gets the forward's equal-nonzero balancing, batched like it.
+            db = ops.merge_execute(plan.bwd, vals, g, m=meta.k,
+                                   impl=exec.impl, out_dtype=b.dtype)
+        dvals = None
+        if need_vals:
+            # dvals = (g · Bᵀ) sampled at the pattern, reduced over the
+            # batch dims — the values are shared across the batch.
+            fwd = plan.fwd
+            dvals = ops.sddmm(fwd["nz_rows"], fwd["nz_cols"],
+                              fwd["nz_valid"], g, b, impl=exec.impl)
+            if dvals.dim() > 1:
+                dvals = dvals.sum(dim=tuple(range(dvals.dim() - 1)))
+            dvals = dvals.to(vals.dtype)
+        return None, None, dvals, db, d_bias, d_res
+
+
 def execute_plan(plan: SpmmPlan, vals: torch.Tensor, b: torch.Tensor,
                  exec: ExecutionConfig | None = None, *,
                  bias: torch.Tensor | None = None,
@@ -118,6 +208,10 @@ def execute_plan(plan: SpmmPlan, vals: torch.Tensor, b: torch.Tensor,
     scale + residual``, applied in ``acc_dtype`` (f32 by default, also
     under bf16 inputs) with one cast to ``out_dtype``.  The kernels take a
     row-major (contiguous) ``b`` and raise on anything else.
+
+    Differentiable in ``vals``, ``b``, ``bias`` and ``residual`` when the
+    plan carries its transpose (the default policy); the kernel path
+    (``impl="cuda"``) raises on a gradient request without one.
     """
     exec = exec if exec is not None else ExecutionConfig()
     if tuple(vals.shape) != (plan.meta.nnz_pad,):
@@ -133,22 +227,22 @@ def execute_plan(plan: SpmmPlan, vals: torch.Tensor, b: torch.Tensor,
         raise ValueError(
             f"plan lives on {plan.device}, operands on {b.device} / "
             f"{vals.device}: build the plan on the operands' device")
+    grad = _needs_grad(vals, b, bias, residual)
+    impl = exec.impl or ("cuda" if b.is_cuda else "torch")
+    if grad and plan.bwd is None and impl == "cuda":
+        raise ValueError(
+            "execute_plan: a gradient through the CUDA kernels runs dB on "
+            "the plan's transpose (CSC) merge plan, and this plan was "
+            "built without one. Build it with PlanPolicy("
+            "with_transpose=True) (the default), run under "
+            "torch.no_grad(), or use ExecutionConfig(impl='torch').")
     exec = _resolve_exec("execute_plan", plan.meta.m, vals, b, exec, bias,
                          residual)
-    if exec.impl == "cuda" and _needs_grad(vals, b, bias, residual):
-        raise NotImplementedError(
-            "execute_plan: the CUDA kernels have no backward yet — the "
-            "gradient path (dB through the transpose merge plan, dvals "
-            "through the SDDMM kernel) comes with the port's training "
-            "slice. Run under torch.no_grad(), or use "
-            "ExecutionConfig(impl='torch') for a differentiable plain "
-            "version.")
-    spec = _registry().get_method(plan.meta.method)
-    return spec.execute(plan.meta, plan.fwd, vals, b, impl=exec.impl,
-                        epilogue=exec.epilogue, bias=bias,
-                        residual=residual,
-                        acc_dtype=torch_dtype(exec.acc_dtype),
-                        out_dtype=torch_dtype(exec.out_dtype))
+    if grad and plan.bwd is not None:
+        return _ExecuteFn.apply(plan, exec, vals, b, bias, residual)
+    # No gradient asked for, or a forward-only plan on the plain version
+    # (ordinary autograd, like the reference's impl="xla").
+    return _forward(plan.meta, plan.fwd, vals, b, exec, bias, residual)
 
 
 def _check_plan_overrides(plan: SpmmPlan, policy: PlanPolicy) -> None:

@@ -23,7 +23,7 @@ import torch
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "build"
-SOURCES = ("merge_spmm.cu", "rowsplit_spmm.cu")
+SOURCES = ("merge_spmm.cu", "rowsplit_spmm.cu", "sddmm.cu")
 HEADERS = ("spmm_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -47,6 +47,10 @@ _SIGNATURES = {
     # batch, m, n, device, stream
     "repro_merge_epilogue": (_P, _P, _P, _I, _I, _F, _P, _I, _I, _I, _I, _I,
                              _P),
+    # rows, cols, valid, dc, dc_dtype, b, b_dtype, out, batch, nnz_pad, m,
+    # k, n, device, stream
+    "repro_sddmm": (_P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I,
+                    _P),
 }
 
 _lib = None

@@ -8,6 +8,9 @@ apply the epilogue to C = 0, and dispatch by ``impl``: ``"cuda"`` launches
 the hand-written kernel (CUDA tensors only, no fallback), ``"torch"`` runs
 its plain version from ``ref.py``.  The kernels mask the ragged n edge
 themselves and write (batch, m, n) directly, so nothing is padded here.
+``sddmm`` is the backward's values cotangent, dispatched the same way.
+The reference's ``custom_vmap`` op wrappers have no counterpart: the port
+batches through the leading dims of B, one launch for the stack.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ from repro_torch.core.epilogue import apply_epilogue
 from . import merge_spmm as _merge
 from . import ref as _ref
 from . import rowsplit_spmm as _rowsplit
+from . import sddmm as _sddmm
 
 
 def _resolve_dtypes(vals, b, acc_dtype, out_dtype):
@@ -104,3 +108,33 @@ def rowsplit_execute(structure: dict, vals: torch.Tensor, b: torch.Tensor,
     return _execute(_rowsplit.rowsplit_spmm_cuda, _ref.rowsplit_execute_ref,
                     structure, vals, b, m, impl, epilogue, bias, residual,
                     acc_dtype, out_dtype)
+
+
+def sddmm(rows: torch.Tensor, cols: torch.Tensor, valid: torch.Tensor,
+          dc: torch.Tensor, b: torch.Tensor, *, impl: str) -> torch.Tensor:
+    """Sampled dense-dense matmul over a pattern: dvals[p] = dC[r_p]·B[c_p].
+
+    ``rows``/``cols`` are the plan's per-nonzero coordinates (in-bounds
+    everywhere; padded slots masked off by ``valid``).  This is the
+    values-cotangent kernel of the differentiable SpMM.  ``dc``/``b`` may
+    carry matching leading batch dims, kept per element: (..., m, n) ×
+    (..., k, n) → (..., nnz_pad) in ``dc``'s dtype; shared-values callers
+    reduce the leading dims.  Both implementations return 0 in every
+    padded slot (the kernel skips them), so nothing is masked here.
+    """
+    lead = tuple(dc.shape[:-2])
+    nnz_pad = rows.shape[0]
+    if nnz_pad == 0 or dc.numel() == 0 or b.numel() == 0:
+        # 0-nnz / 0-row / 0-col patterns or an empty batch: every slot is
+        # padding or sums nothing — the cotangent is identically zero.
+        return torch.zeros(lead + (nnz_pad,), dtype=dc.dtype,
+                           device=dc.device)
+    if impl == "torch":
+        return _ref.sddmm_ref(rows, cols, valid, dc, b)
+    if impl != "cuda":
+        raise ValueError(f"unknown impl {impl!r}; expected 'cuda' or "
+                         "'torch'")
+    dc3 = dc.reshape((-1,) + dc.shape[-2:])
+    b3 = b.reshape((-1,) + b.shape[-2:])
+    out = _sddmm.sddmm_cuda(rows, cols, valid, dc3, b3)
+    return out.reshape(lead + (nnz_pad,)).to(dc.dtype)

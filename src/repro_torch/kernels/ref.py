@@ -100,3 +100,26 @@ def rowsplit_execute_ref(structure: dict, vals: torch.Tensor,
     if b.dim() == 2:
         return one(b, res)
     return _map_leading(one, b, res)
+
+
+def sddmm_ref(rows: torch.Tensor, cols: torch.Tensor, valid: torch.Tensor,
+              dc: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version of the SDDMM kernel: the gather-dot oracle.
+
+    ``dvals[..., p] = dC[..., rows[p], :] · B[..., cols[p], :]`` summed in
+    float32 like the kernel (or in the operands' wider type), masked by
+    ``valid`` and cast to ``dc``'s dtype — the cotangent of the CSR values
+    under C = A @ B.  Leading batch dims are kept per element
+    (shared-values callers reduce them).
+    """
+    rows, cols = rows.long(), cols.long()
+    acc = torch.promote_types(torch.promote_types(dc.dtype, b.dtype),
+                              torch.float32)
+
+    def one(dc2, b2):
+        dots = (dc2.to(acc)[rows] * b2.to(acc)[cols]).sum(-1)
+        return torch.where(valid, dots, 0).to(dc.dtype)
+
+    if dc.dim() == 2:
+        return one(dc, b)
+    return _map_leading(one, dc, b)

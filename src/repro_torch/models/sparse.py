@@ -6,6 +6,9 @@ where the activation matrix ``x.T (d_in, tokens)`` is the tall-skinny
 dense B — at serving batch sizes the paper's n ≤ 128 regime.  The
 layer's ``SpmmPlan`` (kernel choice, row-split ``l_pad``, chunk layout,
 transpose plan) is built once per pattern through ``repro_torch.engine``.
+The layer is differentiable: gradients flow to the activations and to the
+CSR values, which :func:`mlp_vals` / :func:`mlp_with_vals` expose for sparse
+fine-tuning (``repro_torch.runtime.steps``).
 """
 from __future__ import annotations
 
@@ -45,12 +48,25 @@ class SparseLinear:
     def method(self) -> str:
         return self.plan.meta.method if self.plan is not None else "auto"
 
+    def with_plan(self, policy: PlanPolicy | None = None) -> SparseLinear:
+        """(Re)attach the engine-cached plan for this weight's pattern.
+
+        With no ``policy``, an attached plan's full statics are replayed
+        (``SparseMatrix.plan_like``); a cache hit when the plan exists.
+        """
+        if policy is None and self.plan is not None:
+            mtx = SparseMatrix(self.weight).plan_like(self.plan.meta)
+        else:
+            mtx = SparseMatrix(self.weight).plan(policy or PlanPolicy())
+        return dataclasses.replace(self, plan=mtx.spmm_plan)
+
     def __call__(self, x: torch.Tensor,
                  exec: ExecutionConfig | None = None, *,
                  bias: torch.Tensor | None = None,
                  residual: torch.Tensor | None = None) -> torch.Tensor:
         """x (..., d_in) → (..., d_out), computed in the weight's dtype and
-        cast back to x's dtype (or ``exec.out_dtype``).
+        cast back to x's dtype (or ``exec.out_dtype``).  Differentiable in
+        ``x`` and the CSR values.
 
         ``bias (d_out,)`` / ``residual (..., d_out)`` and any
         ``exec.epilogue`` activation fuse into the SpMM's output write: the
@@ -99,3 +115,17 @@ def sparse_mlp_apply(sparse_p: dict, x: torch.Tensor, cfg,
                                     epilogue=Epilogue(activation="gelu"))
         h = sparse_p["w1"](x, fused)
     return sparse_p["w2"](h, base)
+
+
+def mlp_vals(sparse_p: dict) -> dict:
+    """The trainable CSR values of a SparseLinear dict."""
+    return {name: sl.weight.vals for name, sl in sparse_p.items()}
+
+
+def mlp_with_vals(sparse_p: dict, vals: dict) -> dict:
+    """Rebind CSR values onto the (frozen-pattern) layers — the sparse
+    fine-tuning parameterization: patterns and plans stay put, values are
+    the optimizer's degrees of freedom."""
+    return {name: dataclasses.replace(
+        sl, weight=dataclasses.replace(sl.weight, vals=vals[name]))
+        for name, sl in sparse_p.items()}

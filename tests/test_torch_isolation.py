@@ -55,7 +55,8 @@ def test_no_jax_or_reference_import(path):
 
 
 def test_importing_the_port_leaves_jax_out():
-    code = ("import sys, repro_torch.launch.serve, repro_torch.convert;"
+    code = ("import sys, repro_torch.launch.serve, repro_torch.convert,"
+            " repro_torch.runtime.steps;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'));"
             "print(bad); raise SystemExit(1 if bad else 0)")

@@ -194,8 +194,9 @@ def _env():
 
 
 def test_grad_required_on_plain_path_is_differentiable():
-    """On the CPU the plain version is ordinary autograd; the kernel path
-    (CUDA) refuses grad until the training slice (see core/spmm.py)."""
+    """On the CPU a gradient runs the plain versions through the
+    differentiable SpMM's backward (tests/test_torch_grad.py holds it
+    against the reference)."""
     a = SparseMatrix.from_dense(np.eye(4, dtype=np.float32) * 2).plan()
     b = torch.ones(4, 2, requires_grad=True)
     a.matmul(b).sum().backward()
