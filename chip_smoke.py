@@ -12,7 +12,9 @@ NVIDIA H100 (sm_90a) and the CUDA toolkit.  Phases, each timed:
               card: the six matrix kinds of the reference's kernel tests and
               the two Llama-3.2-1B FFN shapes, n in {1, 32, 128, 160}, f32
               and bf16, 2-D and batched; the SpMMs with three epilogues, the
-              SDDMM also on a 0-nnz pattern;
+              SDDMM also on a 0-nnz pattern; the grouped GEMM on the
+              reference's sweep, a ragged case and OLMoE's two full-width
+              shapes with skewed group sizes, f32 and bf16;
 3. grad     — ``execute_plan`` under autograd, kernels against plain
               versions: dvals, dB, d_bias and d_res, both methods, three
               epilogues, 2-D and batched B, with the backward's launches;
@@ -20,7 +22,8 @@ NVIDIA H100 (sm_90a) and the CUDA toolkit.  Phases, each timed:
               cuSPARSE call (``torch.sparse.mm`` / ``sampled_addmm``, a
               yardstick the port never calls) and the least time the card
               could take, for the forward SpMMs and the backward's SDDMM and
-              dB (merge on the transpose plan);
+              dB (merge on the transpose plan); the grouped GEMM at the MoE
+              path's shapes against ``torch.bmm``;
 5. serving  — ``serve_pruned`` on Llama-3.2-1B at full width (16 layers,
               random weights from a seed), batch 4 x prompt 32, keep 0.25,
               once with the §5.4 rule (row-split) and once forcing merge,
@@ -32,7 +35,16 @@ NVIDIA H100 (sm_90a) and the CUDA toolkit.  Phases, each timed:
               FFN's output) for both methods: losses, step times, device
               busy share, peak memory, plans built, launches per step, and
               the kernel step's gradients against the plain step's;
-7. summary  — a ``kernels`` JSON line, the card's name and power limit, and
+7. decode   — ``generate`` (prefill + 16 greedy decode steps) of
+              OLMoE-1B-7B at full width (16 layers, 64 experts top-8,
+              random weights from a seed, bf16 compute), batch 4 x prompt
+              32, its MoE FFNs through the grouped GEMM kernel: prefill and
+              decode-step times, tokens/s, launches per forward and over
+              the run, peak memory, a profiled decode step; layers 0 and
+              15 held against the plain version on their own inputs; the
+              smoke OLMoE on the card against the CPU (the same tokens);
+              and Llama-3.2-1B's ``generate`` (the GQA decode path) timed;
+8. summary  — a ``kernels`` JSON line, the card's name and power limit, and
               last the ``{"ok": true, ...}`` line.
 
 Exits non-zero, printing no result, when torch sees no CUDA device, when
@@ -96,6 +108,7 @@ LR, TRAIN_STEPS = 16.0, 5
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12        # H100 SXM, float32 outside tensor cores
+BF16_FLOP_PER_S = 989e12       # H100 SXM, bf16 tensor cores, dense
 
 MATRIX_KINDS = {               # tests/test_kernels.py MATRIX_KINDS
     "regular_long": (64, 96, 33),
@@ -111,6 +124,22 @@ MATRIX_KINDS = {               # tests/test_kernels.py MATRIX_KINDS
 LLAMA_FFN = {"w1": (8192, 2048), "w2": (2048, 8192)}
 KEEP = 0.25
 SERVE_BATCH, SERVE_PROMPT, SEED = 4, 32, 0
+GEN_LEN = 16                   # the reference serve CLI's --gen default
+
+# The grouped GEMM: the reference's sweep (tests/test_kernels.py, sizes,
+# d_in, d_out at tt 8) and OLMoE-1B-7B's two shapes — w1/w3 (d_model ->
+# d_ff) and w2 (d_ff -> d_model) over 64 experts x one 64-token block.
+MOE_SWEEP = [((64, 0, 64, 128), 64, 96), ((8, 8, 8, 8), 16, 16),
+             ((256,), 32, 48)]
+MOE_EXPERTS, MOE_TT, MOE_TOKENS = 64, 64, 4096
+MOE_FULL = [(2048, 1024), (1024, 2048)]
+MOE_HOLD_LAYERS = (0, 15)
+# moe_apply through the kernel vs through its plain version, on the same h
+# (so the same routing): bf16 compute — three bf16 GEMM outputs and the
+# bf16 scatter-add (atomics on the card) round in other places, 2e-2; f32
+# compute — the reference's MoE tolerance (tests/test_models.py), 2e-4.
+MOE_TOL = {"bfloat16": dict(rtol=2e-2, atol=2e-2),
+           "float32": dict(rtol=2e-4, atol=2e-4)}
 
 KERNELS = {
     "rowsplit_spmm": dict(
@@ -122,6 +151,9 @@ KERNELS = {
     "sddmm": dict(
         method=None, source="src/repro_torch/csrc/sddmm.cu",
         replaces="src/repro/kernels/sddmm.py:38"),
+    "moe_gemm": dict(
+        method=None, source="src/repro_torch/csrc/moe_gemm.cu",
+        replaces="src/repro/kernels/moe_gemm.py:40"),
 }
 
 
@@ -332,8 +364,7 @@ def parity_grad(matrices, eps, dev, read_counts) -> dict:
                                                       ct)
                             ran = {key: v - before[key]
                                    for key, v in read_counts().items()}
-                            want = dict(rowsplit_spmm=0, merge_spmm=0,
-                                        sddmm=0, merge_epilogue=0)
+                            want = dict.fromkeys(ran, 0)
                             if impl == "cuda":
                                 want.update(merge_spmm=1, sddmm=1,
                                             merge_epilogue=int(
@@ -520,8 +551,8 @@ def training(cfg, dev, card, reset_counts, read_counts) -> dict:
         for name in totals:
             totals[name] += counts[name]
         per_step = {name: v / TRAIN_STEPS for name, v in counts.items()}
-        want = dict(rowsplit_spmm=0.0, merge_spmm=1.0, sddmm=3.0,
-                    merge_epilogue=0.0)
+        want = dict.fromkeys(per_step, 0.0)
+        want.update(merge_spmm=1.0, sddmm=3.0)
         want[kname] += 3.0
         cold, warm = times[0], statistics.median(times[1:])
 
@@ -572,6 +603,356 @@ def training(cfg, dev, card, reset_counts, read_counts) -> dict:
     return totals
 
 
+def to_device(tree, dev):
+    """A copy of a params tree (dicts, lists, tensors) on ``dev``."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def leaves(tree):
+    """The tensors of a params tree (dicts, lists, tensors)."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in leaves(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in leaves(v)]
+    return [tree]
+
+
+def skewed_sizes(gen, n_experts, n_blocks, tt, dev):
+    """Padded group sizes of ``n_blocks`` blocks of ``tt`` over the
+    experts, skewed (weight 1/(e+1)): hot experts own several blocks,
+    some own none."""
+    weights = 1.0 / torch.arange(1, n_experts + 1, dtype=torch.float32,
+                                 device=dev)
+    picks = torch.multinomial(weights, n_blocks, replacement=True,
+                              generator=gen)
+    sizes = torch.zeros(n_experts, dtype=torch.int32, device=dev)
+    sizes.index_add_(0, picks, torch.full_like(picks, tt, dtype=torch.int32))
+    return sizes
+
+
+def parity_moe(dev) -> float:
+    """The grouped GEMM kernel against its plain version on the card
+    (through ``ops.moe_group_gemm``, one counted launch a call): the
+    reference's sweep (tests/test_kernels.py, tt 8), a ragged case with
+    two row tiles per block, and OLMoE's two full-width shapes with skewed
+    group sizes that leave some experts empty; f32 and bf16.  Returns the
+    worst |error|."""
+    from repro_torch.kernels import moe_gemm, ops
+    e_full, tt_full = MOE_EXPERTS, MOE_TT
+    cases = [(f"sweep {sizes}", sizes, din, dout, 8)
+             for sizes, din, dout in MOE_SWEEP]
+    cases.append(("ragged (192, 0, 96) tt 96", (192, 0, 96), 100, 200, 96))
+    for din, dout in MOE_FULL:
+        cases.append((f"full {MOE_TOKENS}x{din}->{dout}", None, din, dout,
+                      tt_full))
+    worst, seed = 0.0, 700
+    for name, sizes, din, dout, tt in cases:
+        seed += 1
+        g = torch.Generator(device=dev).manual_seed(seed)
+        if sizes is None:
+            sz = skewed_sizes(g, e_full, MOE_TOKENS // tt_full, tt_full, dev)
+            empty = int((sz == 0).sum())
+            if not empty or int(sz.max()) <= tt_full:
+                raise AssertionError(f"moe parity {name}: sizes {sz} are "
+                                     "not skewed")
+            note = (f"{empty} empty groups, largest "
+                    f"{int(sz.max()) // tt_full} blocks")
+        else:
+            sz = torch.tensor(sizes, dtype=torch.int32, device=dev)
+            note = f"sizes {sizes}"
+        tokens, e = int(sz.sum()), sz.numel()
+        x32 = torch.randn(tokens, din, generator=g, device=dev)
+        w32 = torch.randn(e, din, dout, generator=g, device=dev) * din ** -0.5
+        for dt in (torch.float32, torch.bfloat16):
+            tol = TOL[str(dt).removeprefix("torch.")]
+            x, w = x32.to(dt), w32.to(dt)
+            before = moe_gemm.LAUNCHES
+            got = ops.moe_group_gemm(x, w, sz, tt=tt, impl="cuda")
+            if moe_gemm.LAUNCHES - before != 1:
+                raise AssertionError(f"moe_gemm {name}: counted "
+                                     f"{moe_gemm.LAUNCHES - before} launches")
+            want = ops.moe_group_gemm(x, w, sz, tt=tt, impl="torch")
+            torch.cuda.synchronize()
+            d, r = check_close(f"moe_gemm {name} {dt}", got, want, tol)
+            print(f"parity moe_gemm  {name:28s} ({tokens}, {din}) x ({e}, "
+                  f"{din}, {dout}) tt {tt} {str(dt):14s}: max_abs {d:.3e} "
+                  f"(tol rtol {tol['rtol']} atol {tol['atol']}; worst "
+                  f"|d|/(atol+rtol|want|) {r:.3f}); {note}")
+            worst = max(worst, d)
+        del x32, w32
+    return worst
+
+
+def moe_bound(tokens, d_in, d_out, n_live, itemsize):
+    """(ms, "bytes"/"operations", bytes, flops) of one grouped GEMM: x and
+    the weights of the ``n_live`` experts that own a block read once, the
+    output written once, against 2·tokens·d_in·d_out operations at the
+    operands' peak (bf16 tensor cores, or f32 outside them)."""
+    nbytes = (tokens * d_in + n_live * d_in * d_out + tokens * d_out) \
+        * itemsize
+    flops = 2 * tokens * d_in * d_out
+    peak = BF16_FLOP_PER_S if itemsize == 2 else FP32_FLOP_PER_S
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / peak
+    return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations",
+            nbytes, flops)
+
+
+def timing_moe(dev, card) -> dict:
+    """The grouped GEMM at the MoE path's shapes (OLMoE-1B-7B, bf16, every
+    expert one block of 64 — the capacity at batch 4 x 32 and at decode):
+    kernel, plain version, ``torch.bmm`` over the (E, cap, d) layout (the
+    yardstick; the port never calls it) and the bound, per launch and per
+    MoE layer (w1 + w3: 4096 x 2048 -> 1024, w2: 4096 x 1024 -> 2048);
+    and the per-forward f32 -> bf16 weight cast the path keeps from the
+    reference."""
+    from repro_torch.kernels import moe_gemm, ops, ref
+    e, tt, tokens = MOE_EXPERTS, MOE_TT, MOE_TOKENS
+    sizes = torch.full((e,), tokens // e, dtype=torch.int32, device=dev)
+    block_expert = moe_gemm.plan_groups(sizes, tokens, tt)
+    layer = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, cast_ms=0.0,
+                 bytes=0, flops=0)
+    for (din, dout), uses in zip(MOE_FULL, (2, 1)):
+        g = torch.Generator(device=dev).manual_seed(40 + din)
+        x = torch.randn(tokens, din, generator=g, device=dev).to(
+            torch.bfloat16)
+        w32 = torch.randn(e, din, dout, generator=g, device=dev) * \
+            din ** -0.5
+        w = w32.to(torch.bfloat16)
+        kern = lambda: moe_gemm.moe_group_gemm_cuda(x, w, block_expert,
+                                                    tt=tt)
+        plain = lambda: ref.moe_group_gemm_ref(x, w, block_expert, tt)
+        lib = lambda: torch.bmm(x.view(e, tokens // e, din), w)
+        out, want = kern(), lib().reshape(tokens, dout)
+        torch.cuda.synchronize()
+        # The yardstick computes the same function (loose: timing only).
+        if not torch.allclose(out.float(), want.float(), rtol=2e-2,
+                              atol=2e-2):
+            raise AssertionError("torch.bmm computes something else")
+        bound, by, nbytes, flops = moe_bound(tokens, din, dout, e, 2)
+        k_ms = time_ms(kern)
+        p_ms = time_ms(plain, reps=5, inner=3)
+        l_ms = time_ms(lib)
+        c_ms = time_ms(lambda: w32.to(torch.bfloat16))
+        print(f"timing moe_gemm {tokens}x{din}->{dout} E {e} bf16: kernel "
+              f"{k_ms:.4f} ms ({k_ms / bound:.2f}x bound), plain {p_ms:.4f} "
+              f"ms, torch.bmm {l_ms:.4f} ms, bound {bound:.6f} ms ({by}: "
+              f"{nbytes} B, {flops} flop); the f32->bf16 cast of this "
+              f"weight {c_ms:.4f} ms; {card}")
+        layer["ms"] += uses * k_ms
+        layer["plain_ms"] += uses * p_ms
+        layer["library_ms"] += uses * l_ms
+        layer["bytes"] += uses * nbytes
+        layer["flops"] += uses * flops
+        layer["cast_ms"] += uses * c_ms
+        del x, w, w32
+    t_b = layer["bytes"] / HBM_BYTES_PER_S
+    t_o = layer["flops"] / BF16_FLOP_PER_S
+    layer["bound_ms"] = max(t_b, t_o) * 1e3
+    layer["bound_by"] = "bytes" if t_b >= t_o else "operations"
+    print(f"timing moe_gemm per MoE layer (w1+w3+w2): kernel "
+          f"{layer['ms']:.4f} ms ({layer['ms'] / layer['bound_ms']:.2f}x "
+          f"bound), plain {layer['plain_ms']:.4f} ms, torch.bmm "
+          f"{layer['library_ms']:.4f} ms, bound {layer['bound_ms']:.6f} ms "
+          f"({layer['bound_by']}: {layer['bytes']} B, {layer['flops']} "
+          f"flop); the three weight casts {layer['cast_ms']:.4f} ms; {card}")
+    return layer
+
+
+def hold_moe_layers(cfg, params, prompt, dev, read_counts):
+    """Layers 0 and 15 of the full-width model: ``moe_apply`` on the same
+    input h (the layer's own, from the prompt) once through the kernel and
+    once through its plain version (``impl="torch"``).  The router is the
+    same torch code on the same h, so the routing is identical and only
+    the grouped GEMMs differ.  bf16 compute at 2e-2, and f32 compute at
+    the reference's MoE tolerance 2e-4."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    worst = 0.0
+    with torch.no_grad():
+        x = M.embed_inputs(params, cfg, prompt)
+        for i, lp in enumerate(params["blocks"]):
+            a, _ = L.attention_apply(lp["attn"], L.norm_apply(
+                lp["ln1"], x, cfg.norm), cfg)
+            x = x + a
+            h = L.norm_apply(lp["ln2"], x, cfg.norm)
+            if i in MOE_HOLD_LAYERS:
+                for c, hh, tol in ((cfg, h, MOE_TOL["bfloat16"]),
+                                   (cfg32, h.float(), MOE_TOL["float32"])):
+                    before = read_counts()["moe_gemm"]
+                    got, aux = moe.moe_apply(lp["moe"], hh, c)
+                    mid = read_counts()["moe_gemm"]
+                    want, _ = moe.moe_apply(lp["moe"], hh, c, impl="torch")
+                    if (mid - before, read_counts()["moe_gemm"] - mid) != \
+                            (3, 0):
+                        raise AssertionError(
+                            f"layer {i}: the kernel run launched "
+                            f"{mid - before}, the plain run "
+                            f"{read_counts()['moe_gemm'] - mid}")
+                    torch.cuda.synchronize()
+                    d, r = check_close(f"moe layer {i} {c.compute_dtype}",
+                                       got, want, tol)
+                    xt = hh.reshape(-1, c.d_model)
+                    if not torch.equal(moe.route(lp["moe"], xt, c)[1],
+                                       moe.route(lp["moe"], xt, c)[1]):
+                        raise AssertionError(f"layer {i}: the routing is "
+                                             "not reproducible")
+                    print(f"moe layer {i:2d} {c.compute_dtype:8s} kernel vs "
+                          f"plain on h {tuple(hh.shape)}: max |d| {d:.3e}, "
+                          f"max |y| {want.abs().max().item():.3f} (tol rtol "
+                          f"{tol['rtol']} atol {tol['atol']}; worst ratio "
+                          f"{r:.3f}); aux loss {aux.item():.6f}")
+                    worst = max(worst, d)
+            y, _ = moe.moe_apply(lp["moe"], h, cfg)
+            x = x + y
+    return worst
+
+
+def run_generate(cfg, params, prompt, dev, card, reset_counts, read_counts,
+                 label):
+    """``generate`` at batch x prompt x GEN_LEN, each forward timed;
+    prints and returns (tokens, counts, times, peak GiB)."""
+    from repro_torch.launch import serve
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    reset_counts()
+    out = serve.generate(cfg, params, prompt, GEN_LEN, times=times)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    total = sum(times)
+    b, s = prompt.shape
+    if out.shape != (b, s + GEN_LEN) or not torch.equal(out[:, :s], prompt) \
+            or int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
+        raise AssertionError(f"{label}: bad tokens {tuple(out.shape)}")
+    print(f"generate {label}: batch {b} x prompt {s} x gen {GEN_LEN}: "
+          f"prefill {times[0]:.3f} ms, decode step median "
+          f"{statistics.median(times[1:]):.3f} ms (min {min(times[1:]):.3f}, "
+          f"max {max(times[1:]):.3f}), {len(times)} forwards in "
+          f"{total:.3f} ms, {b * GEN_LEN / (total / 1e3):.1f} tok/s "
+          f"(generated tokens over the synchronised forwards); peak device "
+          f"memory {peak:.3f} GiB; launches {counts}; {card}")
+    print(f"generate {label}: tokens[0] {out[0, s:].tolist()}")
+    return out, counts, times, peak
+
+
+def decode(dev, card, reset_counts, read_counts) -> dict:
+    """Greedy decode (``generate``) of OLMoE-1B-7B at full width, the MoE
+    FFNs through the grouped GEMM kernel; its layers 0 and 15 held against
+    the plain version; the smoke OLMoE on the card against the CPU; and
+    Llama-3.2-1B (the GQA decode path, no kernel of ours) timed.  Returns
+    the grouped GEMM's launches in the OLMoE run and its worst |error|."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.engine import clear_cache
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.runtime import steps
+    clear_cache()               # the earlier phases' plans
+    torch.cuda.empty_cache()
+    cfg = get_config("olmoe-1b-7b")
+    print(f"model {cfg.name}: {cfg.num_layers} layers (no depth cut), "
+          f"d_model {cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads} "
+          f"(head_dim {cfg.head_dim}), {cfg.num_experts} experts top-"
+          f"{cfg.top_k}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} untied; "
+          f"{cfg.param_dtype} params, {cfg.compute_dtype} compute; random "
+          f"weights from seed {SEED}; batch {SERVE_BATCH} x prompt "
+          f"{SERVE_PROMPT} x gen {GEN_LEN}")
+    params = M.init_params(cfg, SEED, dev)
+    n_params = sum(t.numel() for t in leaves(params))
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    prompt = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                           generator=g, device=dev)
+    print(f"params {n_params} ({n_params * 4 / 1e9:.2f} GB f32) on the card")
+    forwards = GEN_LEN + 1
+    per_forward = 3 * cfg.num_layers
+    out, counts, times, peak = run_generate(
+        cfg, params, prompt, dev, card, reset_counts, read_counts,
+        "olmoe-1b-7b")
+    want = dict.fromkeys(counts, 0)
+    want["moe_gemm"] = per_forward * forwards
+    if counts != want:
+        raise AssertionError(f"generate launched {counts}, expected {want}")
+    # One prefill and one decode step alone: 48 launches each.
+    prefill = steps.make_prefill_step(cfg, cache_len=SERVE_PROMPT + GEN_LEN
+                                      + 8)
+    decode_step = steps.make_decode_step(cfg)
+    with torch.no_grad():
+        reset_counts()
+        st = prefill(params, {"tokens": prompt})
+        n_pre = read_counts()["moe_gemm"]
+        tok = st["logits"][:, -1].argmax(-1)[:, None]
+        reset_counts()
+        decode_step(params, st["caches"], {"tokens": tok}, st["pos"])
+        n_dec = read_counts()["moe_gemm"]
+    print(f"grouped GEMM launches: prefill {n_pre}, one decode step {n_dec} "
+          f"(expected {per_forward} each); over the generate run "
+          f"{counts['moe_gemm']} (expected {per_forward} x {forwards})")
+    if (n_pre, n_dec) != (per_forward, per_forward):
+        raise AssertionError("launches per forward differ from 3 a layer")
+
+    def one_prefill():
+        with torch.no_grad():
+            prefill(params, {"tokens": prompt})
+
+    def one_step():
+        with torch.no_grad():
+            decode_step(params, st["caches"], {"tokens": tok}, st["pos"])
+
+    pre_ms = host_ms(one_prefill)
+    pre_busy = profile_device(one_prefill, top=4)
+    step_ms = host_ms(one_step)
+    busy = profile_device(one_step, top=10)
+    print(f"profile prefill: device busy {pre_busy:.3f} ms of the "
+          f"{pre_ms:.3f} ms warm prefill (host clock, median of 5; the "
+          f"generate run's first prefill {times[0]:.3f} ms includes CUDA's "
+          f"lazy set-up; idle share {1 - pre_busy / pre_ms:.3f}); {card}")
+    print(f"profile decode step: device busy {busy:.3f} ms of the "
+          f"{step_ms:.3f} ms warm step (host clock, median of 5; idle share "
+          f"{1 - busy / step_ms:.3f}); steady decode "
+          f"{SERVE_BATCH * 1e3 / step_ms:.1f} tok/s (batch / warm step); "
+          f"{card}")
+    worst = hold_moe_layers(cfg, params, prompt, dev, read_counts)
+    del params, st, one_step, one_prefill
+    torch.cuda.empty_cache()
+
+    # The smoke OLMoE, f32 compute, on the card and on the CPU: the same
+    # tokens.
+    scfg = dataclasses.replace(get_smoke_config("olmoe-1b-7b"),
+                               compute_dtype="float32")
+    sp_cpu = M.init_params(scfg, SEED, "cpu")
+    sprompt = torch.randint(0, scfg.vocab_size, (2, 16),
+                            generator=torch.Generator().manual_seed(3))
+    want_tok = serve.generate(scfg, sp_cpu, sprompt, GEN_LEN)
+    reset_counts()
+    got_tok = serve.generate(scfg, to_device(sp_cpu, dev), sprompt.to(dev),
+                             GEN_LEN)
+    n_smoke = read_counts()["moe_gemm"]
+    same = torch.equal(got_tok.cpu(), want_tok)
+    print(f"smoke {scfg.name} f32 generate (2 x 16 x {GEN_LEN}): card "
+          f"(grouped GEMM kernel, {n_smoke} launches) vs CPU (plain "
+          f"version): tokens equal {same}; {got_tok[0, 16:].tolist()}")
+    if not same or not n_smoke:
+        raise AssertionError("smoke generate: the card and the CPU differ")
+
+    # Llama-3.2-1B: the GQA decode path (32 query / 8 KV heads), timed.
+    lcfg = get_config("llama3.2-1b")
+    lparams = M.init_params(lcfg, SEED, dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    lprompt = torch.randint(0, lcfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                            generator=g, device=dev)
+    run_generate(lcfg, lparams, lprompt, dev, card, reset_counts,
+                 read_counts, "llama3.2-1b")
+    del lparams
+    torch.cuda.empty_cache()
+    return dict(launches=counts["moe_gemm"], worst=worst, peak=peak,
+                times=times)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -584,8 +965,8 @@ def main() -> int:
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.core import (Epilogue, PlanPolicy, build_plan, csr,
                                   prune_to_csr)
-    from repro_torch.kernels import (_cuda, merge_spmm, ops, rowsplit_spmm,
-                                     sddmm)
+    from repro_torch.kernels import (_cuda, merge_spmm, moe_gemm, ops,
+                                     rowsplit_spmm, sddmm)
     from repro_torch.launch import serve
     from repro_torch.models import model as M
 
@@ -598,7 +979,7 @@ def main() -> int:
     execs = {"rowsplit": ops.rowsplit_execute, "merge": ops.merge_execute}
     counters = {"rowsplit": rowsplit_spmm, "merge": merge_spmm}
     by_kernel = {"rowsplit_spmm": rowsplit_spmm, "merge_spmm": merge_spmm,
-                 "sddmm": sddmm}
+                 "sddmm": sddmm, "moe_gemm": moe_gemm}
 
     def reset_counts():
         for mod in by_kernel.values():
@@ -709,6 +1090,7 @@ def main() -> int:
                       f"{ratio:.3f})")
                 worst[kname] = max(worst[kname], max_abs)
     worst["sddmm"] = parity_sddmm(dict(matrices, **zero_nnz), dev)
+    worst["moe_gemm"] = parity_moe(dev)
     done("parity", t0)
 
     # ------------------------------------------------------------- grad --
@@ -797,6 +1179,7 @@ def main() -> int:
               f"{card}")
     backward = timing_backward(llama_matrix, dev, card)
     per_layer["sddmm"] = backward["sddmm"]
+    per_layer["moe_gemm"] = timing_moe(dev, card)
     done("timing", t0)
 
     # ---------------------------------------------------------- serving --
@@ -879,11 +1262,7 @@ def main() -> int:
     scfg = dataclasses.replace(get_smoke_config("llama3.2-1b"),
                                compute_dtype="float32")
     sp_cpu = M.init_params(scfg, SEED, "cpu")
-    sp_gpu = {"embed": sp_cpu["embed"].to(dev),
-              "final_norm": {"scale": sp_cpu["final_norm"]["scale"].to(dev)},
-              "blocks": [{name: {w: t.to(dev) for w, t in sub.items()}
-                          for name, sub in blk.items()}
-                         for blk in sp_cpu["blocks"]]}
+    sp_gpu = to_device(sp_cpu, dev)
     tokens = torch.randint(0, scfg.vocab_size, (2, 16),
                            generator=torch.Generator().manual_seed(3))
     fwd = serve.make_pruned_forward(scfg)
@@ -905,16 +1284,24 @@ def main() -> int:
     train = training(cfg, dev, card, reset_counts, read_counts)
     done("training", t0)
 
+    # ----------------------------------------------------------- decode --
+    t0 = phase("decode")
+    dec = decode(dev, card, reset_counts, read_counts)
+    worst["moe_gemm"] = max(worst["moe_gemm"], dec["worst"])
+    done("decode", t0)
+
     # ---------------------------------------------------------- summary --
     rows = []
     for kname, kspec in KERNELS.items():
         acc = per_layer[kname]
+        launches = {"serving": serving[kname],
+                    "training": train.get(kname, 0),
+                    "decode": dec["launches"] if kname == "moe_gemm" else 0}
         row = {
             "name": kname, "route": "cuda", "source": kspec["source"],
             "replaces": kspec["replaces"],
-            "launches": serving[kname] + train[kname],
-            "launches_serving": serving[kname],
-            "launches_training": train[kname],
+            "launches": sum(launches.values()),
+            **{f"launches_{k}": v for k, v in launches.items()},
             "max_abs_err": worst[kname], "ms": acc["ms"],
             "plain_ms": acc["plain_ms"], "bound_ms": acc["bound_ms"],
             "bound_by": acc["bound_by"], "library_ms": acc["library_ms"]}
@@ -924,10 +1311,13 @@ def main() -> int:
     print("(ms, plain_ms, bound_ms, library_ms: one FFN layer's three "
           "matrices at n=128 f32 — the forward SpMM for rowsplit_spmm and "
           "merge_spmm, the values cotangent for sddmm, dB = A^T g on the "
-          "transpose plan in merge_spmm's backward_dB; launches: the "
-          f"serving runs ({forwards} forwards of each method) plus the "
-          f"training runs ({TRAIN_STEPS} steps of each method); "
-          "max_abs_err: worst parity case, forward and gradient)")
+          "transpose plan in merge_spmm's backward_dB; for moe_gemm one "
+          "OLMoE-1B-7B MoE layer's three grouped GEMMs in bf16 (4096 rows, "
+          "64 experts), library torch.bmm; launches: the serving runs "
+          f"({forwards} forwards of each method), the training runs "
+          f"({TRAIN_STEPS} steps of each method) and the OLMoE generate run "
+          f"({GEN_LEN + 1} forwards); max_abs_err: worst parity case, "
+          "forward, gradient and the MoE layers)")
     print(json.dumps({"kernels": rows}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

@@ -11,6 +11,7 @@ from .base import ModelConfig
 
 _MODULES = {
     "llama3.2-1b": "llama3_2_1b",
+    "olmoe-1b-7b": "olmoe_1b_7b",
 }
 
 ARCHS = tuple(_MODULES)

@@ -23,7 +23,7 @@ import torch
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "build"
-SOURCES = ("merge_spmm.cu", "rowsplit_spmm.cu", "sddmm.cu")
+SOURCES = ("merge_spmm.cu", "rowsplit_spmm.cu", "sddmm.cu", "moe_gemm.cu")
 HEADERS = ("spmm_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -51,6 +51,9 @@ _SIGNATURES = {
     # k, n, device, stream
     "repro_sddmm": (_P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I,
                     _P),
+    # x, w, dtype, block_expert, out, tokens, d_in, d_out, n_experts, tt,
+    # device, stream
+    "repro_moe_gemm": (_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lib = None
@@ -66,7 +69,7 @@ def nvcc_path() -> str:
     found = shutil.which("nvcc")
     if found is None:
         raise RuntimeError(
-            "nvcc not found: the SpMM kernels are built from "
+            "nvcc not found: the kernels are built from "
             f"{CSRC} at first use and need the CUDA toolkit (set "
             "CUDA_HOME or put nvcc on PATH)")
     return found

@@ -9,6 +9,8 @@ the hand-written kernel (CUDA tensors only, no fallback), ``"torch"`` runs
 its plain version from ``ref.py``.  The kernels mask the ragged n edge
 themselves and write (batch, m, n) directly, so nothing is padded here.
 ``sddmm`` is the backward's values cotangent, dispatched the same way.
+``moe_group_gemm`` is the MoE block's grouped expert GEMM; it dispatches
+on the tensor's device when ``impl`` is None.
 The reference's ``custom_vmap`` op wrappers have no counterpart: the port
 batches through the leading dims of B, one launch for the stack.
 """
@@ -19,6 +21,7 @@ import torch
 from repro_torch.core.epilogue import apply_epilogue
 
 from . import merge_spmm as _merge
+from . import moe_gemm as _moe
 from . import ref as _ref
 from . import rowsplit_spmm as _rowsplit
 from . import sddmm as _sddmm
@@ -138,3 +141,30 @@ def sddmm(rows: torch.Tensor, cols: torch.Tensor, valid: torch.Tensor,
     b3 = b.reshape((-1,) + b.shape[-2:])
     out = _sddmm.sddmm_cuda(rows, cols, valid, dc3, b3)
     return out.reshape(lead + (nnz_pad,)).to(dc.dtype)
+
+
+def moe_group_gemm(x: torch.Tensor, w: torch.Tensor,
+                   group_sizes: torch.Tensor, *, tt: int = _moe.TT,
+                   impl: str | None = None) -> torch.Tensor:
+    """Grouped GEMM over expert-sorted tokens (merge-based balancing).
+
+    x (tokens_pad, d_in) sorted by expert; w (E, d_in, d_out);
+    group_sizes (E,) padded sizes, multiples of ``tt``, summing to
+    tokens_pad.  ``impl=None`` launches the kernel on a CUDA tensor and
+    runs its plain version on a CPU one; ``"torch"`` asks for the plain
+    version on any device; ``"cuda"`` launches the kernel (raising on a
+    CPU tensor).  The kernel masks ragged d_in/d_out itself, so nothing is
+    padded here.
+    """
+    tokens = x.shape[0]
+    if tokens % tt:
+        raise ValueError(f"tokens {tokens} is not a multiple of tt={tt}")
+    if impl is None:
+        impl = "cuda" if x.is_cuda else "torch"
+    block_expert = _moe.plan_groups(group_sizes, tokens, tt)
+    if impl == "torch":
+        return _ref.moe_group_gemm_ref(x, w, block_expert, tt)
+    if impl != "cuda":
+        raise ValueError(f"unknown impl {impl!r}; expected 'cuda' or "
+                         "'torch'")
+    return _moe.moe_group_gemm_cuda(x, w, block_expert, tt=tt)

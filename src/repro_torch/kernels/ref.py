@@ -123,3 +123,24 @@ def sddmm_ref(rows: torch.Tensor, cols: torch.Tensor, valid: torch.Tensor,
     if dc.dim() == 2:
         return one(dc, b)
     return _map_leading(one, dc, b)
+
+
+def moe_group_gemm_ref(x: torch.Tensor, w: torch.Tensor,
+                       block_expert: torch.Tensor, tt: int) -> torch.Tensor:
+    """Plain version of the grouped GEMM kernel: one batched product per
+    block of ``tt`` tokens.
+
+    ``y[i] = x[i] @ w[block_expert[i // tt]]`` in float32, cast once to
+    x's dtype; a block whose expert is out of range is zeros, as in the
+    kernel.  Gathers one (d_in, d_out) weight per block, never one per
+    token (the reference oracle's ``w[group_ids]`` would take 34 GB at
+    OLMoE's full width).
+    """
+    tokens, d_in = x.shape
+    n_experts, _, d_out = w.shape
+    n_blocks = tokens // tt
+    live = block_expert < n_experts
+    wb = w[block_expert.long().clamp(max=n_experts - 1)].float()
+    y = torch.bmm(x.reshape(n_blocks, tt, d_in).float(), wb)
+    y = torch.where(live[:, None, None], y, 0.0)
+    return y.reshape(tokens, d_out).to(x.dtype)

@@ -1,15 +1,21 @@
-"""Serving entry point: pruned-FFN prefill scoring through the SpMM engine.
+"""Serving entry point: prefill + batched greedy decode, or pruned-FFN
+prefill scoring through the SpMM engine.
 
+    python -m repro_torch.launch.serve --arch olmoe-1b-7b --gen 16
+    python -m repro_torch.launch.serve --arch olmoe-1b-7b --smoke --gen 4 \
+        --device cpu
     python -m repro_torch.launch.serve --prune-ffn 0.25
     python -m repro_torch.launch.serve --prune-ffn 0.25 --spmm-method merge
     python -m repro_torch.launch.serve --smoke --prune-ffn 0.25 --device cpu
 
-Every FFN matrix is magnitude-pruned to CSR once, its plan built once
-through the engine cache, and the forward then runs every FFN matmul as a
-planned SpMM — the hand-written CUDA kernels on the card, their plain
-versions on the CPU.  The dense decode path (``generate``), online
-serving, microbatching, device meshes and TuneDB-driven plans are later
-slices of the port; the CLI rejects their flags.
+Without ``--prune-ffn``, ``generate`` prefills the prompt into KV caches
+and decodes ``--gen`` tokens greedily; MoE blocks run their expert FFNs
+through the grouped GEMM kernel on the card.  With ``--prune-ffn``, every
+FFN matrix is magnitude-pruned to CSR once, its plan built once through
+the engine cache, and the forward then runs every FFN matmul as a planned
+SpMM — the hand-written CUDA kernels on the card, their plain versions on
+the CPU.  Online serving, microbatching, device meshes and TuneDB-driven
+plans are later slices of the port; the CLI rejects their flags.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ from repro_torch.kernels import registry
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.models import sparse as S
+from repro_torch.runtime import steps as R
 
 _PRUNABLE_BTYPES = ("attn",)   # ported blocks that own a dense "mlp"
 
@@ -44,6 +51,44 @@ def _check_replans(before, after) -> int:
     return replans
 
 
+def generate(cfg, params, prompt_tokens, gen_len: int, *, cache_extra=8,
+             times: list | None = None):
+    """Greedy decode.  prompt_tokens (b, s) → (b, s + gen_len), in the
+    prompt's dtype.
+
+    One prefill into caches of ``s + gen_len + cache_extra`` positions,
+    then ``gen_len`` decode steps, each feeding back the argmax of the last
+    logits.  When ``times`` is a list, each forward (the prefill first) is
+    synchronised and its host-clock milliseconds appended to it.
+    """
+    b, s = prompt_tokens.shape
+    prefill = R.make_prefill_step(cfg, cache_len=s + gen_len + cache_extra)
+    decode = R.make_decode_step(cfg)
+    device = prompt_tokens.device
+
+    def timed(fn, *args):
+        if times is None:
+            return fn(*args)
+        t0 = time.perf_counter()
+        out = fn(*args)
+        _sync(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    with torch.no_grad():
+        out = timed(prefill, params, {"tokens": prompt_tokens})
+        caches, logits, pos = out["caches"], out["logits"], out["pos"]
+        toks = [prompt_tokens]
+        cur = logits[:, -1].argmax(-1).to(prompt_tokens.dtype)[:, None]
+        for _ in range(gen_len):
+            toks.append(cur)
+            logits, caches = timed(decode, params, caches, {"tokens": cur},
+                                   pos)
+            cur = logits[:, -1].argmax(-1).to(prompt_tokens.dtype)[:, None]
+            pos = pos + 1
+    return torch.cat(toks, dim=1)
+
+
 def check_prunable(cfg):
     btypes = set(cfg.block_types())
     unsupported = btypes - set(_PRUNABLE_BTYPES)
@@ -51,7 +96,7 @@ def check_prunable(cfg):
         raise SystemExit(
             f"--prune-ffn needs every block to own a dense MLP (ported "
             f"btypes {_PRUNABLE_BTYPES}); arch has {sorted(unsupported)} "
-            "blocks")
+            "blocks (MoE experts have no per-block dense FFN to prune)")
 
 
 def prune_ffn_blocks(params, cfg, keep: float, policy=None) -> list:
@@ -76,7 +121,7 @@ def make_pruned_forward(cfg):
     def fwd(params, blocks, tokens):
         h = M.embed_inputs(params, cfg, tokens)
         for btype, lp in zip(btypes, blocks):
-            h = M.block_apply(lp, btype, h, cfg)
+            h, _, _ = M.block_apply(lp, btype, h, cfg)
         h = L.norm_apply(params["final_norm"], h, cfg.norm)
         return h.float() @ M.unembed_matrix(params, cfg).T.float()
 
@@ -138,11 +183,13 @@ def serve_pruned(cfg, params, prompt, keep: float, *,
 
 def main(argv=None):
     ap = argparse.ArgumentParser(
-        description="pruned-FFN serving through the SpMM engine")
+        description="greedy decode, or pruned-FFN serving through the "
+        "SpMM engine")
     ap.add_argument("--arch", choices=ARCHS, default="llama3.2-1b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--prune-ffn", type=float, default=0.0, metavar="KEEP",
                     help="serve with magnitude-pruned FFNs (CSR SpMM via "
@@ -155,8 +202,7 @@ def main(argv=None):
                     help="torch device (default cuda; 'cpu' runs the "
                     "kernels' plain versions)")
     # The reference's flags of paths this port has not reached yet.
-    later = {"--gen": "the dense decode path (generate)",
-             "--serve": "online serving",
+    later = {"--serve": "online serving",
              "--microbatch": "microbatched scoring",
              "--mesh": "sharded plans",
              "--tunedb": "TuneDB-driven plans"}
@@ -169,10 +215,10 @@ def main(argv=None):
     if given:
         ap.error(", ".join(f"{f} ({later[f]})" for f in given)
                  + ": not ported to repro_torch yet; this slice serves "
-                 "pruned-FFN prefill only")
-    if args.prune_ffn <= 0.0:
-        ap.error("the dense decode path is not ported to repro_torch yet; "
-                 "pass --prune-ffn KEEP to serve with pruned FFNs")
+                 "greedy decode and pruned-FFN prefill only")
+    if args.prune_ffn <= 0.0 and args.spmm_method != "auto":
+        ap.error("--spmm-method: no effect without --prune-ffn KEEP (the "
+                 "dense decode path ignores it); add --prune-ffn or drop it")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda, but torch sees no CUDA device; "
@@ -180,14 +226,26 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.prune_ffn > 0.0:
+        check_prunable(cfg)
     params = M.init_params(cfg, args.seed, device)
     gen = torch.Generator(device=device).manual_seed(args.seed + 1)
     prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            generator=gen, device=device)
-    rep = serve_pruned(cfg, params, prompt, args.prune_ffn,
-                       policy=PlanPolicy(method=args.spmm_method))
-    print(f"pruned-FFN logits {tuple(rep.logits.shape)}; argmax@last "
-          f"{rep.logits[:, -1].argmax(-1).tolist()}")
+    if args.prune_ffn > 0.0:
+        rep = serve_pruned(cfg, params, prompt, args.prune_ffn,
+                           policy=PlanPolicy(method=args.spmm_method))
+        print(f"pruned-FFN logits {tuple(rep.logits.shape)}; argmax@last "
+              f"{rep.logits[:, -1].argmax(-1).tolist()}")
+        return 0
+    _sync(device)
+    t0 = time.perf_counter()
+    out = generate(cfg, params, prompt, args.gen)
+    _sync(device)
+    dt = time.perf_counter() - t0
+    print(f"generated {tuple(out.shape)} in {dt:.2f}s "
+          f"({args.batch * args.gen / dt:.1f} tok/s)")
+    print(out[0, -args.gen:].tolist())
     return 0
 
 

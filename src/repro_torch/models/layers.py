@@ -1,5 +1,6 @@
-"""Transformer building blocks for Llama-style prefill: RMSNorm, RoPE,
-causal GQA attention and the SwiGLU MLP.
+"""Transformer building blocks: RMSNorm, RoPE, causal GQA attention over
+a prefill, one-token attention against a KV cache, and the SwiGLU/GELU
+MLP.
 
 Pure functions over plain dicts of tensors, in the reference's layouts
 (``repro.models.layers``): weights are ``(d_in, d_out)`` and used as
@@ -118,18 +119,74 @@ def causal_attention(q, k, v, *, softcap: float = 0.0) -> torch.Tensor:
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, dh).to(q.dtype)
 
 
-def attention_apply(p, x, cfg) -> torch.Tensor:
-    """Causal self-attention of a prefill with no KV cache.  x (b, s, d)."""
+def decode_attention(q, k_cache, v_cache, pos, *,
+                     softcap: float = 0.0) -> torch.Tensor:
+    """One-token attention against a cache.  q (b, 1, h, dh); caches
+    (b, S, kv, dh); pos (b,) the current position (the number of tokens
+    already in the cache).  Attends over the whole cache, masked to
+    ``kpos <= pos``.
+
+    The reference's numerics: scores from the inputs' exact f32 values
+    (bf16 products are exact in f32), softmax in f32, p cast to v's dtype
+    before PV, f32 sums, the output in q's dtype.
+    """
+    b, _, h, dh = q.shape
+    s_cache, kvh = k_cache.shape[1], k_cache.shape[2]
+    g = h // kvh
+    qg = q.reshape(b, kvh, g, dh)
+    sc = torch.einsum("bkgd,bskd->bkgs", qg.float(), k_cache.float()) \
+        * dh ** -0.5
+    if softcap:
+        sc = softcap * torch.tanh(sc / softcap)
+    kpos = torch.arange(s_cache, device=q.device)
+    mask = kpos[None, :] <= pos[:, None]                     # (b, S)
+    sc = torch.where(mask[:, None, None], sc, float("-inf"))
+    m = sc.amax(-1, keepdim=True)
+    p = torch.exp(sc - m)
+    p = p / p.sum(-1, keepdim=True)
+    out = torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype).float(),
+                       v_cache.float())
+    return out.reshape(b, 1, h, dh).to(q.dtype)
+
+
+def attention_apply(p, x, cfg, *, positions=None, cache=None, pos=None):
+    """Causal self-attention.  x (b, s, d).  Returns (out, new_cache),
+    cache = {"k", "v"} (b, S, kv, dh) in the compute dtype:
+
+    * no cache: a whole sequence; the new cache is its k and v;
+    * ``s == 1`` with a cache: a decode step at ``pos`` (b,) — k and v are
+      written into row ``pos[b]`` of each batch element's cache (a new
+      tensor; the old cache is left as it was), then the token attends
+      over the cache;
+    * ``s > 1`` with a cache: a prefill into an allocated cache — causal
+      attention over the prompt, k and v padded with zeros to S.
+    """
     if cfg.attention != "full":
         raise ValueError(f"attention {cfg.attention!r} is not ported yet")
     b, s, _ = x.shape
     q, k, v = _qkv(p, x, cfg)
-    positions = torch.arange(s, device=x.device)[None, :]
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None, :]
     if cfg.rope_theta:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-    out = causal_attention(q, k, v, softcap=cfg.attn_logit_softcap)
-    return out.reshape(b, s, -1) @ p["wo"].to(cfg.cdtype)
+    softcap = cfg.attn_logit_softcap
+    if cache is None:
+        out = causal_attention(q, k, v, softcap=softcap)
+        new_cache = {"k": k, "v": v}
+    elif s == 1:
+        rows = torch.arange(b, device=x.device)
+        idx = (rows, pos.long())
+        kc = cache["k"].index_put(idx, k[:, 0])
+        vc = cache["v"].index_put(idx, v[:, 0])
+        out = decode_attention(q, kc, vc, pos, softcap=softcap)
+        new_cache = {"k": kc, "v": vc}
+    else:
+        out = causal_attention(q, k, v, softcap=softcap)
+        pad = (0, 0, 0, 0, 0, cache["k"].shape[1] - s)
+        new_cache = {"k": F.pad(k, pad), "v": F.pad(v, pad)}
+    out = out.reshape(b, s, -1) @ p["wo"].to(cfg.cdtype)
+    return out, new_cache
 
 
 # ----------------------------------------------------------------- MLPs ----

@@ -1,1 +1,2 @@
-"""Training-step builders of the port (sparse fine-tuning)."""
+"""Step functions of the port: serving (prefill, decode) and sparse
+fine-tuning."""

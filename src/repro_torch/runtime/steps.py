@@ -1,4 +1,11 @@
-"""Sparse fine-tuning: SGD on the CSR values of a pruned MLP.
+"""Step functions: the serving steps (prefill, decode) and sparse
+fine-tuning, SGD on the CSR values of a pruned MLP.
+
+    prefill = make_prefill_step(cfg, cache_len=s + gen + 8)
+    decode = make_decode_step(cfg)
+    out = prefill(params, {"tokens": prompt})      # caches, logits, pos
+    logits, caches = decode(params, out["caches"], {"tokens": tok},
+                            out["pos"])
 
     sparse_p = prune_mlp(mlp_params, 0.25)          # plans with transpose
     step, vals = make_sparse_train_step(sparse_p, lr=1e-2)
@@ -18,7 +25,28 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import ExecutionConfig, SparseMatrix
+from repro_torch.models import model as M
 from repro_torch.models import sparse as S
+
+
+def make_prefill_step(cfg, *, cache_len: int | None = None):
+    """``prefill_step(params, batch) -> {"caches", "logits", "pos"}``: the
+    prompt's forward, filling KV caches of ``cache_len`` positions."""
+    def prefill_step(params, batch):
+        caches, logits, pos = M.prefill(params, cfg, batch,
+                                        cache_len=cache_len)
+        return {"caches": caches, "logits": logits, "pos": pos}
+
+    return prefill_step
+
+
+def make_decode_step(cfg):
+    """``decode_step(params, caches, batch, pos) -> (logits, caches)``:
+    one token per sequence against the caches."""
+    def decode_step(params, caches, batch, pos):
+        return M.decode_step(params, cfg, caches, batch, pos)
+
+    return decode_step
 
 
 def ensure_spmm_plans(tree, policy=None, mesh=None):

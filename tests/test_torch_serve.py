@@ -108,8 +108,9 @@ def test_main_default_args_smoke_on_cpu():
 
 
 @pytest.mark.parametrize("argv", [
-    ["--smoke", "--device", "cpu"],                        # dense path
-    ["--smoke", "--device", "cpu", "--prune-ffn", "0.25", "--gen", "4"],
+    ["--smoke", "--device", "cpu", "--tunedb", "tune.json"],
+    ["--smoke", "--device", "cpu", "--prune-ffn", "0.25", "--microbatch",
+     "2"],
     ["--smoke", "--device", "cpu", "--prune-ffn", "0.25", "--serve"],
     ["--smoke", "--device", "cpu", "--prune-ffn", "0.25", "--mesh", "2"],
 ])
