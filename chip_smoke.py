@@ -35,7 +35,16 @@ NVIDIA H100 (sm_90a) and the CUDA toolkit.  Phases, each timed:
               FFN's output) for both methods: losses, step times, device
               busy share, peak memory, plans built, launches per step, and
               the kernel step's gradients against the plain step's;
-7. decode   — ``generate`` (prefill + 16 greedy decode steps) of
+7. attention — the flash attention kernel against its plain version on
+              the reference's sweep, its ragged case and the two served
+              models' prefill shapes (4 x 32 and 1 x 2048), f32 and bf16;
+              the main path, ``ops.flash_attention`` on Llama-3.2-1B's and
+              OLMoE-1B-7B's full-width layer-0 q/k/v, one launch a call,
+              held against the model path's ``layers.causal_attention``;
+              kernel, plain version, ``scaled_dot_product_attention`` (a
+              yardstick the port never calls) and the bound at 4 x 32,
+              Llama 1 x 8192 and OLMoE 1 x 4096, bf16 and f32;
+8. decode   — ``generate`` (prefill + 16 greedy decode steps) of
               OLMoE-1B-7B at full width (16 layers, 64 experts top-8,
               random weights from a seed, bf16 compute), batch 4 x prompt
               32, its MoE FFNs through the grouped GEMM kernel: prefill and
@@ -44,7 +53,7 @@ NVIDIA H100 (sm_90a) and the CUDA toolkit.  Phases, each timed:
               15 held against the plain version on their own inputs; the
               smoke OLMoE on the card against the CPU (the same tokens);
               and Llama-3.2-1B's ``generate`` (the GQA decode path) timed;
-8. summary  — a ``kernels`` JSON line, the card's name and power limit, and
+9. summary  — a ``kernels`` JSON line, the card's name and power limit, and
               last the ``{"ok": true, ...}`` line.
 
 Exits non-zero, printing no result, when torch sees no CUDA device, when
@@ -141,6 +150,37 @@ MOE_HOLD_LAYERS = (0, 15)
 MOE_TOL = {"bfloat16": dict(rtol=2e-2, atol=2e-2),
            "float32": dict(rtol=2e-4, atol=2e-4)}
 
+# Flash attention, (b, s, h, kv, dh): the reference's sweep and ragged
+# case (tests/test_flash_kernel.py), the two served models' prefill shapes
+# at batch 4 x prompt 32 (Llama-3.2-1B: 32 query / 8 KV heads of 64;
+# OLMoE-1B-7B: 16 heads of 128) and both at batch 1 x 2048.
+FLASH_PARITY = [
+    ("sweep MHA", (1, 256, 4, 4, 64)),
+    ("sweep GQA g=2", (2, 128, 4, 2, 32)),
+    ("sweep GQA g=4", (1, 384, 8, 2, 64)),
+    ("ragged s", (1, 200, 4, 4, 32)),
+    ("llama3.2-1b 4x32", (4, 32, 32, 8, 64)),
+    ("olmoe-1b-7b 4x32", (4, 32, 16, 16, 128)),
+    ("llama3.2-1b 1x2048", (1, 2048, 32, 8, 64)),
+    ("olmoe-1b-7b 1x2048", (1, 2048, 16, 16, 128)),
+]
+# The kernel vs its plain version, and vs the model path's attention: the
+# reference's tolerances (tests/test_flash_kernel.py).  f32 2e-5: both sum
+# in f32, in other orders.  bf16 3e-2: the kernel rounds p to bf16 against
+# a running max, the plain version against the row's final max, and the
+# output is rounded to bf16.
+FLASH_TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
+             "bfloat16": dict(rtol=3e-2, atol=3e-2)}
+# The main path: layer 0's q/k/v of each model at batch x prompt.
+FLASH_MODEL_SHAPES = ((4, 32), (1, 2048))
+# Timing: (model, batch, s) — the served prefill, and long prefills.
+FLASH_TIMING = [("llama3.2-1b", 4, 32), ("olmoe-1b-7b", 4, 32),
+                ("llama3.2-1b", 1, 8192), ("olmoe-1b-7b", 1, 4096)]
+FLASH_SUMMARY = ("llama3.2-1b", 1, 8192, "bfloat16")
+# The softmax's second limit: one exp per score at 16 a clock on each of
+# the 132 SMs at the H100 SXM's 1.98 GHz boost clock (data sheet).
+SM_COUNT, EXP_PER_CLOCK, SM_CLOCK_HZ = 132, 16, 1.98e9
+
 KERNELS = {
     "rowsplit_spmm": dict(
         method="rowsplit", source="src/repro_torch/csrc/rowsplit_spmm.cu",
@@ -154,6 +194,9 @@ KERNELS = {
     "moe_gemm": dict(
         method=None, source="src/repro_torch/csrc/moe_gemm.cu",
         replaces="src/repro/kernels/moe_gemm.py:40"),
+    "flash_attention": dict(
+        method=None, source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:33"),
 }
 
 
@@ -953,6 +996,186 @@ def decode(dev, card, reset_counts, read_counts) -> dict:
                 times=times)
 
 
+def flash_inputs(gen, b, s, h, kvh, dh, dt, dev):
+    """Unit-normal q (b, s, h, dh), k and v (b, s, kv, dh) in ``dt``."""
+    return tuple(torch.randn(b, s, heads, dh, generator=gen,
+                             device=dev).to(dt)
+                 for heads in (h, kvh, kvh))
+
+
+def flash_bound(b, s, h, kvh, dh, itemsize):
+    """(ms, "bytes"/"operations", bytes, flops, exp ms) of one causal call:
+    q, k, v read once and o written once, against 4·b·h·dh·s(s+1)/2
+    operations (Q·Kᵀ and P·V over the triangle) at the operands' peak
+    (bf16 tensor cores, or f32 outside them); beside it the time of the
+    softmax's b·h·s(s+1)/2 exps at 16 a clock an SM."""
+    nbytes = (2 * b * s * h * dh + 2 * b * s * kvh * dh) * itemsize
+    flops = 4 * b * h * dh * s * (s + 1) // 2
+    peak = BF16_FLOP_PER_S if itemsize == 2 else FP32_FLOP_PER_S
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / peak
+    exps = b * h * s * (s + 1) // 2
+    exp_ms = exps / (SM_COUNT * EXP_PER_CLOCK * SM_CLOCK_HZ) * 1e3
+    return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations",
+            nbytes, flops, exp_ms)
+
+
+def parity_flash(dev) -> float:
+    """The flash attention kernel against its plain version on the card
+    (through ``ops.flash_attention``, one counted launch a call) on
+    FLASH_PARITY, f32 and bf16; returns the worst |error|."""
+    from repro_torch.kernels import flash_attention, ops
+    worst, seed = 0.0, 1100
+    for name, (b, s, h, kvh, dh) in FLASH_PARITY:
+        for dt in (torch.float32, torch.bfloat16):
+            seed += 1
+            tol = FLASH_TOL[str(dt).removeprefix("torch.")]
+            g = torch.Generator(device=dev).manual_seed(seed)
+            q, k, v = flash_inputs(g, b, s, h, kvh, dh, dt, dev)
+            before = flash_attention.LAUNCHES
+            got = ops.flash_attention(q, k, v)
+            if flash_attention.LAUNCHES - before != 1:
+                raise AssertionError(
+                    f"flash_attention {name}: counted "
+                    f"{flash_attention.LAUNCHES - before} launches")
+            want = ops.flash_attention(q, k, v, impl="torch")
+            torch.cuda.synchronize()
+            d, r = check_close(f"flash_attention {name} {dt}", got, want,
+                               tol)
+            print(f"parity flash_attention {name:19s} (b, s, h, kv, dh) "
+                  f"{(b, s, h, kvh, dh)} {str(dt):14s}: max_abs {d:.3e} "
+                  f"(tol rtol {tol['rtol']} atol {tol['atol']}; worst "
+                  f"|d|/(atol+rtol|want|) {r:.3f})")
+            worst = max(worst, d)
+            del q, k, v, got, want
+    return worst
+
+
+def model_qkv(arch, batch, s, dev):
+    """Layer 0's q, k, v of ``arch`` at full width: an attention layer
+    from ``layers.init_attention`` (seeded), a random prompt through an
+    embedding table drawn as the model's, the block's RMSNorm, ``_qkv``
+    and RoPE — what ``attention_apply`` hands its attention."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    cfg = get_config(arch)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    p = L.init_attention(gen, cfg)
+    embed = L.normal_init(gen, (cfg.vocab_size, cfg.d_model), cfg.pdtype,
+                          cfg.d_model ** -0.5)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, s), generator=gen,
+                           device=dev)
+    x = embed[tokens].to(cfg.cdtype)
+    del embed
+    ln = L.init_norm(cfg.d_model, cfg.norm, cfg.pdtype, dev)
+    q, k, v = L._qkv(p, L.norm_apply(ln, x, cfg.norm), cfg)
+    positions = torch.arange(s, device=dev)[None, :]
+    q = L.rope(q, positions, cfg.rope_theta)
+    k = L.rope(k, positions, cfg.rope_theta)
+    return q.contiguous(), k.contiguous(), v.contiguous()
+
+
+def hold_flash_models(dev, reset_counts, read_counts):
+    """The main path: ``ops.flash_attention`` (the kernel) on Llama-3.2-1B's
+    and OLMoE-1B-7B's layer-0 q/k/v at full width (FLASH_MODEL_SHAPES, bf16
+    compute), counted from 0, then each result held against the model
+    path's ``layers.causal_attention`` on the same tensors.  Returns the
+    launches and the worst |error|."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    cases = [(arch, b, s, *model_qkv(arch, b, s, dev))
+             for arch in ("llama3.2-1b", "olmoe-1b-7b")
+             for b, s in FLASH_MODEL_SHAPES]
+    torch.cuda.synchronize()
+    reset_counts()
+    with torch.no_grad():
+        outs = [ops.flash_attention(q, k, v) for *_, q, k, v in cases]
+    counts = read_counts()
+    want_counts = dict.fromkeys(counts, 0)
+    want_counts["flash_attention"] = len(cases)
+    print(f"main path: {len(cases)} ops.flash_attention calls on the "
+          f"models' q/k/v launched {counts}")
+    if counts != want_counts:
+        raise AssertionError(f"the main path launched {counts}, expected "
+                             f"{want_counts}")
+    worst = 0.0
+    tol = FLASH_TOL["bfloat16"]
+    for (arch, b, s, q, k, v), got in zip(cases, outs):
+        want = L.causal_attention(q, k, v)
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"flash_attention {arch}: non-finite")
+        d, r = check_close(f"flash_attention vs causal_attention {arch} "
+                           f"{b}x{s}", got, want, tol)
+        print(f"model path {arch:12s} layer 0 at {b} x {s} (q "
+              f"{tuple(q.shape)}, k/v {tuple(k.shape)}, {q.dtype}): "
+              f"kernel vs layers.causal_attention max |d| {d:.3e}, max "
+              f"|o| {want.float().abs().max().item():.3f} (tol rtol "
+              f"{tol['rtol']} atol {tol['atol']}; worst ratio {r:.3f})")
+        worst = max(worst, d)
+    return counts["flash_attention"], worst
+
+
+def timing_flash(dev, card) -> dict:
+    """Kernel, plain version, ``scaled_dot_product_attention(is_causal,
+    enable_gqa)`` on (b, h, s, dh) views (the yardstick; the port never
+    calls it) and the bound, at FLASH_TIMING in bf16 and f32.  Returns
+    {(model, b, s, dtype): row}."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention, ref
+    rows = {}
+    for arch, b, s in FLASH_TIMING:
+        cfg = get_config(arch)
+        h, kvh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        for dt in (torch.bfloat16, torch.float32):
+            dname = str(dt).removeprefix("torch.")
+            g = torch.Generator(device=dev).manual_seed(60 + s)
+            q, k, v = flash_inputs(g, b, s, h, kvh, dh, dt, dev)
+            kern = lambda: flash_attention.flash_attention_cuda(q, k, v)
+            plain = lambda: ref.flash_attention_ref(q, k, v)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            lib = lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+            out, want = kern(), lib().transpose(1, 2)
+            torch.cuda.synchronize()
+            # The yardstick computes the same function (loose: timing only).
+            if not torch.allclose(out.float(), want.float(), rtol=3e-2,
+                                  atol=3e-2):
+                raise AssertionError("scaled_dot_product_attention computes "
+                                     "something else")
+            del out, want
+            bound, by, nbytes, flops, exp_ms = flash_bound(
+                b, s, h, kvh, dh, q.element_size())
+            k_ms = time_ms(kern)
+            p_ms = time_ms(plain, reps=5, inner=3)
+            l_ms = time_ms(lib)
+            print(f"timing flash_attention {arch} b {b} s {s} (h {h}, kv "
+                  f"{kvh}, dh {dh}) {dname}: kernel {k_ms:.4f} ms "
+                  f"({k_ms / bound:.2f}x bound), plain {p_ms:.4f} ms, "
+                  f"sdpa {l_ms:.4f} ms (kernel / sdpa {k_ms / l_ms:.2f}), "
+                  f"bound {bound:.6f} ms ({by}: {nbytes} B, {flops} flop); "
+                  f"exp limit {exp_ms:.6f} ms; {card}")
+            rows[(arch, b, s, dname)] = dict(
+                ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound,
+                bound_by=by, exp_ms=exp_ms)
+            del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    return rows
+
+
+def attention(dev, card, reset_counts, read_counts) -> dict:
+    """The flash attention phase: parity, the main path against the model
+    path's attention, timing.  Returns the summary row's numbers."""
+    torch.cuda.empty_cache()
+    worst = parity_flash(dev)
+    launches, w_model = hold_flash_models(dev, reset_counts, read_counts)
+    rows = timing_flash(dev, card)
+    row = dict(rows[FLASH_SUMMARY])
+    row.update(launches=launches, worst=max(worst, w_model))
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -965,8 +1188,8 @@ def main() -> int:
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.core import (Epilogue, PlanPolicy, build_plan, csr,
                                   prune_to_csr)
-    from repro_torch.kernels import (_cuda, merge_spmm, moe_gemm, ops,
-                                     rowsplit_spmm, sddmm)
+    from repro_torch.kernels import (_cuda, flash_attention, merge_spmm,
+                                     moe_gemm, ops, rowsplit_spmm, sddmm)
     from repro_torch.launch import serve
     from repro_torch.models import model as M
 
@@ -979,7 +1202,8 @@ def main() -> int:
     execs = {"rowsplit": ops.rowsplit_execute, "merge": ops.merge_execute}
     counters = {"rowsplit": rowsplit_spmm, "merge": merge_spmm}
     by_kernel = {"rowsplit_spmm": rowsplit_spmm, "merge_spmm": merge_spmm,
-                 "sddmm": sddmm, "moe_gemm": moe_gemm}
+                 "sddmm": sddmm, "moe_gemm": moe_gemm,
+                 "flash_attention": flash_attention}
 
     def reset_counts():
         for mod in by_kernel.values():
@@ -1284,6 +1508,13 @@ def main() -> int:
     train = training(cfg, dev, card, reset_counts, read_counts)
     done("training", t0)
 
+    # -------------------------------------------------------- attention --
+    t0 = phase("attention")
+    attn = attention(dev, card, reset_counts, read_counts)
+    per_layer["flash_attention"] = attn
+    worst["flash_attention"] = attn["worst"]
+    done("attention", t0)
+
     # ----------------------------------------------------------- decode --
     t0 = phase("decode")
     dec = decode(dev, card, reset_counts, read_counts)
@@ -1296,6 +1527,8 @@ def main() -> int:
         acc = per_layer[kname]
         launches = {"serving": serving[kname],
                     "training": train.get(kname, 0),
+                    "attention": attn["launches"]
+                    if kname == "flash_attention" else 0,
                     "decode": dec["launches"] if kname == "moe_gemm" else 0}
         row = {
             "name": kname, "route": "cuda", "source": kspec["source"],
@@ -1307,17 +1540,24 @@ def main() -> int:
             "bound_by": acc["bound_by"], "library_ms": acc["library_ms"]}
         if kname == "merge_spmm":
             row["backward_dB"] = backward["merge_dB"]
+        if kname == "flash_attention":
+            row["exp_limit_ms"] = acc["exp_ms"]
         rows.append(row)
     print("(ms, plain_ms, bound_ms, library_ms: one FFN layer's three "
           "matrices at n=128 f32 — the forward SpMM for rowsplit_spmm and "
           "merge_spmm, the values cotangent for sddmm, dB = A^T g on the "
           "transpose plan in merge_spmm's backward_dB; for moe_gemm one "
           "OLMoE-1B-7B MoE layer's three grouped GEMMs in bf16 (4096 rows, "
-          "64 experts), library torch.bmm; launches: the serving runs "
+          "64 experts), library torch.bmm; for flash_attention one causal "
+          "call at Llama-3.2-1B's widths, batch 1 x 8192, bf16, library "
+          "scaled_dot_product_attention, exp_limit_ms the softmax's exps "
+          "at 16 a clock an SM; launches: the serving runs "
           f"({forwards} forwards of each method), the training runs "
-          f"({TRAIN_STEPS} steps of each method) and the OLMoE generate run "
-          f"({GEN_LEN + 1} forwards); max_abs_err: worst parity case, "
-          "forward, gradient and the MoE layers)")
+          f"({TRAIN_STEPS} steps of each method), the attention phase's "
+          f"main-path run ({2 * len(FLASH_MODEL_SHAPES)} ops.flash_attention "
+          f"calls) and the OLMoE generate run ({GEN_LEN + 1} forwards); "
+          "max_abs_err: worst parity case, forward, gradient, the MoE "
+          "layers and the attention layers)")
     print(json.dumps({"kernels": rows}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

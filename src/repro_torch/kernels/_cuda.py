@@ -23,7 +23,8 @@ import torch
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "build"
-SOURCES = ("merge_spmm.cu", "rowsplit_spmm.cu", "sddmm.cu", "moe_gemm.cu")
+SOURCES = ("merge_spmm.cu", "rowsplit_spmm.cu", "sddmm.cu", "moe_gemm.cu",
+           "flash_attention.cu")
 HEADERS = ("spmm_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -54,6 +55,10 @@ _SIGNATURES = {
     # x, w, dtype, block_expert, out, tokens, d_in, d_out, n_experts, tt,
     # device, stream
     "repro_moe_gemm": (_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # q, k, v, out, dtype, b, s, h, kv_heads, head_dim, scale, device,
+    # stream
+    "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                              _I, _P),
 }
 
 _lib = None

@@ -1,0 +1,95 @@
+"""Causal flash attention with online softmax.
+
+* :func:`flash_attention_cuda`: the hand-written CUDA kernel in
+  ``csrc/flash_attention.cu``.  One thread block owns 64 query rows of
+  one (batch, head), 4 warps of 16 rows each, and walks the keys in tiles
+  of 64 staged in shared memory, from the first tile to the diagonal one
+  (the only tile masked elementwise); tiles above the diagonal are never
+  visited.  The query tiles with the most key tiles are launched first.
+  The KV head of query head ``h`` is ``h // (heads // kv_heads)``, read
+  in place (no broadcast copy), and the (b, s, h, dh) strides are read
+  directly (no fold or transpose copy); a ragged s is masked, not padded.
+  The result does not depend on the tile sizes beyond bf16 rounding of
+  the online softmax's rescaled p.
+* Its plain PyTorch version is
+  ``repro_torch.kernels.ref.flash_attention_ref``.
+
+The reference kernel has no backward, so neither has this one: a call
+that would need a gradient raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _cuda
+
+DEFAULT_BQ = 128     # the reference's block sizes (its padding length)
+DEFAULT_BK = 128
+NEG_INF = -1e30      # finite: no (-inf) - (-inf) can make a NaN
+HEAD_DIMS = tuple(range(16, 129, 16))   # the kernel's template instances
+
+# Launches of the flash attention kernel, one per flash_attention_cuda
+# call that ran it.
+LAUNCHES = 0
+
+
+def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """(b, s, h, kv, dh) of a causal GQA call; raises on any other
+    layout."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"q must be (b, s, h, dh) and k/v (b, s, kv, dh), "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, s, h, dh = q.shape
+    kvh = k.shape[2]
+    if tuple(k.shape) != (b, s, kvh, dh) or v.shape != k.shape:
+        raise ValueError(f"k and v must be (b, s, kv, dh) = "
+                         f"{(b, s, kvh, dh)}, got {tuple(k.shape)} and "
+                         f"{tuple(v.shape)}")
+    if kvh == 0 or h % kvh:
+        raise ValueError(f"{h} query heads do not share {kvh} KV heads "
+                         "evenly")
+    return b, s, h, kvh, dh
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
+                         v: torch.Tensor) -> torch.Tensor:
+    """The kernel on the card: causal attention, q (b, s, h, dh), k/v
+    (b, s, kv, dh), all contiguous, 16-byte aligned and of one dtype
+    (float32 or bfloat16), dh one of ``HEAD_DIMS``.  Softmax and sums in
+    float32; the output (b, s, h, dh) in q's dtype.  Launches once on the
+    current stream without synchronising; raises on any operand the
+    kernel does not take, and on a call that would need a gradient.
+    """
+    global LAUNCHES
+    b, s, h, kvh, dh = check_shapes(q, k, v)
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"head_dim {dh} is not supported by the kernel "
+                         f"(it takes {HEAD_DIMS})")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention_cuda has no backward: the reference's flash "
+            "attention kernel has no backward kernel either; call it under "
+            "torch.no_grad() or on tensors that do not require grad")
+    if not q.is_cuda:
+        raise ValueError(
+            f"flash_attention_cuda runs on CUDA tensors; q is on {q.device} "
+            "(the plain version is kernels.ref.flash_attention_ref)")
+    dev = q.device
+    floats = tuple(_cuda.DTYPE_CODES)
+    _cuda.require(q, "q", device=dev, dtypes=floats)
+    _cuda.require(k, "k", device=dev, dtypes=(q.dtype,))
+    _cuda.require(v, "v", device=dev, dtypes=(q.dtype,))
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary "
+                             "(the kernel loads 16 bytes a thread)")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    _cuda.check(_cuda.library().repro_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        _cuda.DTYPE_CODES[q.dtype], b, s, h, kvh, dh, dh ** -0.5,
+        dev.index, _cuda.stream_of(q)), "flash_attention")
+    LAUNCHES += 1
+    return out

@@ -9,8 +9,10 @@ the hand-written kernel (CUDA tensors only, no fallback), ``"torch"`` runs
 its plain version from ``ref.py``.  The kernels mask the ragged n edge
 themselves and write (batch, m, n) directly, so nothing is padded here.
 ``sddmm`` is the backward's values cotangent, dispatched the same way.
-``moe_group_gemm`` is the MoE block's grouped expert GEMM; it dispatches
-on the tensor's device when ``impl`` is None.
+``moe_group_gemm`` is the MoE block's grouped expert GEMM, and
+``flash_attention`` causal GQA attention in the reference entry point's
+(b, s, h, dh) layout; both dispatch on the tensor's device when ``impl`` is
+None.
 The reference's ``custom_vmap`` op wrappers have no counterpart: the port
 batches through the leading dims of B, one launch for the stack.
 """
@@ -20,6 +22,7 @@ import torch
 
 from repro_torch.core.epilogue import apply_epilogue
 
+from . import flash_attention as _flash
 from . import merge_spmm as _merge
 from . import moe_gemm as _moe
 from . import ref as _ref
@@ -168,3 +171,33 @@ def moe_group_gemm(x: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"unknown impl {impl!r}; expected 'cuda' or "
                          "'torch'")
     return _moe.moe_group_gemm_cuda(x, w, block_expert, tt=tt)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    bq: int = _flash.DEFAULT_BQ, bk: int = _flash.DEFAULT_BK,
+                    impl: str | None = None) -> torch.Tensor:
+    """Causal flash attention.
+
+    q (b, s, h, dh); k/v (b, s, kv, dh) with h % kv == 0 (grouped-query
+    attention: query head h reads KV head h // (h / kv)) → (b, s, h, dh)
+    in q's dtype, float32 softmax and sums.  ``bq``/``bk`` are the
+    reference's block sizes; there they only set the padding length, so
+    they are validated and do not change the result.  ``impl=None``
+    launches the kernel on a CUDA tensor and runs its plain version on a
+    CPU one; ``"torch"`` asks for the plain version on any device;
+    ``"cuda"`` launches the kernel (raising on a CPU tensor).  The kernel
+    reads the layout and masks a ragged s in place, so nothing is
+    broadcast, transposed or padded here.
+    """
+    for name, blk in (("bq", bq), ("bk", bk)):
+        if not isinstance(blk, int) or blk <= 0:
+            raise ValueError(f"{name} must be a positive int, got {blk!r}")
+    _flash.check_shapes(q, k, v)
+    if impl is None:
+        impl = "cuda" if q.is_cuda else "torch"
+    if impl == "torch":
+        return _ref.flash_attention_ref(q, k, v)
+    if impl != "cuda":
+        raise ValueError(f"unknown impl {impl!r}; expected 'cuda' or "
+                         "'torch'")
+    return _flash.flash_attention_cuda(q, k, v)

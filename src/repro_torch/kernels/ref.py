@@ -12,6 +12,7 @@ import torch
 from repro_torch.core.csr import CSR
 from repro_torch.core.epilogue import apply_epilogue
 
+from .flash_attention import NEG_INF
 from .merge_spmm import apply_vals
 
 
@@ -144,3 +145,37 @@ def moe_group_gemm_ref(x: torch.Tensor, w: torch.Tensor,
     y = torch.bmm(x.reshape(n_blocks, tt, d_in).float(), wb)
     y = torch.where(live[:, None, None], y, 0.0)
     return y.reshape(tokens, d_out).to(x.dtype)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, chunk: int = 1024) -> torch.Tensor:
+    """Plain version of the flash attention kernel: causal GQA attention.
+
+    q (b, s, h, dh), k/v (b, s, kv, dh) with h % kv == 0 → (b, s, h, dh)
+    in q's dtype.  The kernel's numerics: scores in f32 from the operands'
+    exact values, scaled by ``dh ** -0.5`` after the dot product; the
+    causal mask by position with the finite ``NEG_INF``; softmax in f32;
+    p rounded to v's dtype before P·V; sums in f32; the output divided by
+    ``max(l, 1e-30)``.  Query rows go in chunks of at most ``chunk`` rows
+    against every key (each row's softmax is its own, so the result does
+    not depend on ``chunk``), which bounds the f32 score tensor.
+    """
+    b, s, h, dh = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    kf, vf = k.float(), v.float()
+    pos = torch.arange(s, device=q.device)
+    out = torch.empty_like(q)
+    for c0 in range(0, s, chunk):
+        c1 = min(s, c0 + chunk)
+        qg = q[:, c0:c1].reshape(b, c1 - c0, kvh, g, dh).float()
+        sc = torch.einsum("bqkgd,bskd->bkgqs", qg, kf) * dh ** -0.5
+        sc = torch.where(pos[c0:c1, None] >= pos[None, :], sc, NEG_INF)
+        m = sc.amax(-1, keepdim=True)
+        p = torch.exp(sc - m)
+        l = p.sum(-1)
+        acc = torch.einsum("bkgqs,bskd->bkgqd", p.to(v.dtype).float(), vf)
+        o = acc / torch.clamp(l, min=1e-30)[..., None]
+        out[:, c0:c1] = o.permute(0, 3, 1, 2, 4).reshape(
+            b, c1 - c0, h, dh).to(q.dtype)
+    return out
