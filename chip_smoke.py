@@ -7,7 +7,8 @@ Run from the repository root, with no arguments, on a machine with one
 NVIDIA H100 (sm_90a) and the CUDA toolkit.  Phases, each timed:
 
 1. build    — compile the hand-written CUDA kernels from ``src/repro_torch/
-              csrc`` with nvcc (printing what ptxas reports);
+              csrc`` with nvcc (printing what ptxas reports, and the flash
+              attention wgmma body's registers, spills and shared memory);
 2. parity   — hold each kernel against its plain PyTorch version on the
               card: the six matrix kinds of the reference's kernel tests and
               the two Llama-3.2-1B FFN shapes, n in {1, 32, 128, 160}, f32
@@ -36,14 +37,18 @@ NVIDIA H100 (sm_90a) and the CUDA toolkit.  Phases, each timed:
               busy share, peak memory, plans built, launches per step, and
               the kernel step's gradients against the plain step's;
 7. attention — the flash attention kernel against its plain version on
-              the reference's sweep, its ragged case and the two served
-              models' prefill shapes (4 x 32 and 1 x 2048), f32 and bf16;
-              the main path, ``ops.flash_attention`` on Llama-3.2-1B's and
-              OLMoE-1B-7B's full-width layer-0 q/k/v, one launch a call,
-              held against the model path's ``layers.causal_attention``;
+              the reference's sweep, its ragged case, the wgmma body's tile
+              edges (ragged s at b = 2, s = 129, GQA g = 4 at dh 128) and
+              the two served models' prefill shapes (4 x 32 and 1 x 2048),
+              f32 and bf16, each call's body (wgmma, mma_sync, simt) held
+              to ``flash_attention.body_for``; the main path,
+              ``ops.flash_attention`` on Llama-3.2-1B's and OLMoE-1B-7B's
+              full-width layer-0 q/k/v, one wgmma launch a call, held
+              against the model path's ``layers.causal_attention``;
               kernel, plain version, ``scaled_dot_product_attention`` (a
-              yardstick the port never calls) and the bound at 4 x 32,
-              Llama 1 x 8192 and OLMoE 1 x 4096, bf16 and f32;
+              yardstick the port never calls; default dispatch, and each
+              backend it accepts) and the bound at 4 x 32, Llama 1 x 8192
+              and OLMoE 1 x 4096, bf16 and f32;
 8. decode   — ``generate`` (prefill + 16 greedy decode steps) of
               OLMoE-1B-7B at full width (16 layers, 64 experts top-8,
               random weights from a seed, bf16 compute), batch 4 x prompt
@@ -61,7 +66,9 @@ the package is not beside this script, or when any phase fails.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -151,14 +158,22 @@ MOE_TOL = {"bfloat16": dict(rtol=2e-2, atol=2e-2),
            "float32": dict(rtol=2e-4, atol=2e-4)}
 
 # Flash attention, (b, s, h, kv, dh): the reference's sweep and ragged
-# case (tests/test_flash_kernel.py), the two served models' prefill shapes
-# at batch 4 x prompt 32 (Llama-3.2-1B: 32 query / 8 KV heads of 64;
-# OLMoE-1B-7B: 16 heads of 128) and both at batch 1 x 2048.
+# case (tests/test_flash_kernel.py), the wgmma body's tile edges (query
+# tiles of 192 rows at dh 64 and 128 at dh 128, key tiles of 128; a ragged
+# s at b = 2, which TMA zero-fills without reading the next batch; s = 129,
+# one key past a tile; GQA g = 4 at dh 128), the two served models'
+# prefill shapes at batch 4 x prompt 32 (Llama-3.2-1B: 32 query / 8 KV
+# heads of 64; OLMoE-1B-7B: 16 heads of 128) and both at batch 1 x 2048.
 FLASH_PARITY = [
     ("sweep MHA", (1, 256, 4, 4, 64)),
     ("sweep GQA g=2", (2, 128, 4, 2, 32)),
     ("sweep GQA g=4", (1, 384, 8, 2, 64)),
     ("ragged s", (1, 200, 4, 4, 32)),
+    ("ragged s b2 dh64", (2, 200, 8, 2, 64)),
+    ("ragged s b2 dh128", (2, 333, 16, 16, 128)),
+    ("s 129 dh64", (2, 129, 8, 2, 64)),
+    ("s 129 dh128", (2, 129, 8, 2, 128)),
+    ("GQA g=4 dh128", (1, 384, 8, 2, 128)),
     ("llama3.2-1b 4x32", (4, 32, 32, 8, 64)),
     ("olmoe-1b-7b 4x32", (4, 32, 16, 16, 128)),
     ("llama3.2-1b 1x2048", (1, 2048, 32, 8, 64)),
@@ -1019,6 +1034,23 @@ def flash_bound(b, s, h, kvh, dh, itemsize):
             nbytes, flops, exp_ms)
 
 
+def flash_call(fn, what, dt, dh):
+    """One kernel call through ``fn``; returns (output, body) and raises
+    unless it launched exactly the body ``flash_attention.body_for`` names
+    for (dt, dh)."""
+    from repro_torch.kernels import flash_attention
+    before = dict(flash_attention.LAUNCHES_BY_BODY)
+    out = fn()
+    ran = {b: n - before.get(b, 0)
+           for b, n in flash_attention.LAUNCHES_BY_BODY.items()
+           if n != before.get(b, 0)}
+    want = flash_attention.body_for(dt, dh)
+    if ran != {want: 1}:
+        raise AssertionError(f"flash_attention {what}: launched {ran}, "
+                             f"expected one {want} launch")
+    return out, want
+
+
 def parity_flash(dev) -> float:
     """The flash attention kernel against its plain version on the card
     (through ``ops.flash_attention``, one counted launch a call) on
@@ -1032,7 +1064,8 @@ def parity_flash(dev) -> float:
             g = torch.Generator(device=dev).manual_seed(seed)
             q, k, v = flash_inputs(g, b, s, h, kvh, dh, dt, dev)
             before = flash_attention.LAUNCHES
-            got = ops.flash_attention(q, k, v)
+            got, body = flash_call(lambda: ops.flash_attention(q, k, v),
+                                   f"{name} {dt}", dt, dh)
             if flash_attention.LAUNCHES - before != 1:
                 raise AssertionError(
                     f"flash_attention {name}: counted "
@@ -1042,9 +1075,9 @@ def parity_flash(dev) -> float:
             d, r = check_close(f"flash_attention {name} {dt}", got, want,
                                tol)
             print(f"parity flash_attention {name:19s} (b, s, h, kv, dh) "
-                  f"{(b, s, h, kvh, dh)} {str(dt):14s}: max_abs {d:.3e} "
-                  f"(tol rtol {tol['rtol']} atol {tol['atol']}; worst "
-                  f"|d|/(atol+rtol|want|) {r:.3f})")
+                  f"{(b, s, h, kvh, dh)} {str(dt):14s} {body:8s}: max_abs "
+                  f"{d:.3e} (tol rtol {tol['rtol']} atol {tol['atol']}; "
+                  f"worst |d|/(atol+rtol|want|) {r:.3f})")
             worst = max(worst, d)
             del q, k, v, got, want
     return worst
@@ -1080,7 +1113,7 @@ def hold_flash_models(dev, reset_counts, read_counts):
     compute), counted from 0, then each result held against the model
     path's ``layers.causal_attention`` on the same tensors.  Returns the
     launches and the worst |error|."""
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import flash_attention, ops
     from repro_torch.models import layers as L
     cases = [(arch, b, s, *model_qkv(arch, b, s, dev))
              for arch in ("llama3.2-1b", "olmoe-1b-7b")
@@ -1090,13 +1123,18 @@ def hold_flash_models(dev, reset_counts, read_counts):
     with torch.no_grad():
         outs = [ops.flash_attention(q, k, v) for *_, q, k, v in cases]
     counts = read_counts()
+    bodies = dict(flash_attention.LAUNCHES_BY_BODY)
     want_counts = dict.fromkeys(counts, 0)
     want_counts["flash_attention"] = len(cases)
     print(f"main path: {len(cases)} ops.flash_attention calls on the "
-          f"models' q/k/v launched {counts}")
+          f"models' q/k/v launched {counts}, by body {bodies}")
     if counts != want_counts:
         raise AssertionError(f"the main path launched {counts}, expected "
                              f"{want_counts}")
+    if bodies != {"wgmma": len(cases)}:
+        raise AssertionError(f"the main path's flash_attention launches "
+                             f"ran the bodies {bodies}, expected "
+                             f"{len(cases)} wgmma")
     worst = 0.0
     tol = FLASH_TOL["bfloat16"]
     for (arch, b, s, q, k, v), got in zip(cases, outs):
@@ -1115,11 +1153,29 @@ def hold_flash_models(dev, reset_counts, read_counts):
     return counts["flash_attention"], worst
 
 
+def sdpa_backend_ms(lib) -> dict:
+    """``lib`` (an SDPA call) timed under each backend alone
+    (``torch.nn.attention.sdpa_kernel``): {name: ms, or None where the
+    backend declines the call}."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    out = {}
+    for be in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+               SDPBackend.CUDNN_ATTENTION):
+        try:
+            with sdpa_kernel([be]), warnings.catch_warnings():
+                warnings.simplefilter("ignore", UserWarning)
+                out[be.name] = time_ms(lib)
+        except RuntimeError:
+            out[be.name] = None
+    return out
+
+
 def timing_flash(dev, card) -> dict:
     """Kernel, plain version, ``scaled_dot_product_attention(is_causal,
     enable_gqa)`` on (b, h, s, dh) views (the yardstick; the port never
-    calls it) and the bound, at FLASH_TIMING in bf16 and f32.  Returns
-    {(model, b, s, dtype): row}."""
+    calls it: its default dispatch is ``library_ms``, each backend alone
+    is printed beside it) and the bound, at FLASH_TIMING in bf16 and f32.
+    Returns {(model, b, s, dtype): row}."""
     import torch.nn.functional as F
 
     from repro_torch.configs import get_config
@@ -1137,7 +1193,8 @@ def timing_flash(dev, card) -> dict:
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             lib = lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True)
-            out, want = kern(), lib().transpose(1, 2)
+            out, body = flash_call(kern, f"timing {arch} {b}x{s}", dt, dh)
+            want = lib().transpose(1, 2)
             torch.cuda.synchronize()
             # The yardstick computes the same function (loose: timing only).
             if not torch.allclose(out.float(), want.float(), rtol=3e-2,
@@ -1150,15 +1207,23 @@ def timing_flash(dev, card) -> dict:
             k_ms = time_ms(kern)
             p_ms = time_ms(plain, reps=5, inner=3)
             l_ms = time_ms(lib)
+            backends = sdpa_backend_ms(lib)
             print(f"timing flash_attention {arch} b {b} s {s} (h {h}, kv "
-                  f"{kvh}, dh {dh}) {dname}: kernel {k_ms:.4f} ms "
+                  f"{kvh}, dh {dh}) {dname} {body}: kernel {k_ms:.4f} ms "
                   f"({k_ms / bound:.2f}x bound), plain {p_ms:.4f} ms, "
                   f"sdpa {l_ms:.4f} ms (kernel / sdpa {k_ms / l_ms:.2f}), "
                   f"bound {bound:.6f} ms ({by}: {nbytes} B, {flops} flop); "
                   f"exp limit {exp_ms:.6f} ms; {card}")
+            print("  sdpa by backend: " + ", ".join(
+                f"{name} " + ("refused" if ms is None else f"{ms:.4f} ms")
+                for name, ms in backends.items()))
+            if s >= 4096 and dt == torch.bfloat16:
+                print("  sdpa's default dispatch, device kernels:")
+                profile_device(lib, top=3)
             rows[(arch, b, s, dname)] = dict(
                 ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound,
-                bound_by=by, exp_ms=exp_ms)
+                bound_by=by, exp_ms=exp_ms, body=body,
+                sdpa_backends_ms=backends)
             del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
     return rows
@@ -1174,6 +1239,29 @@ def attention(dev, card, reset_counts, read_counts) -> dict:
     row = dict(rows[FLASH_SUMMARY])
     row.update(launches=launches, worst=max(worst, w_model))
     return row
+
+
+def print_wgmma_ptxas(log: str) -> None:
+    """What ptxas reported for the flash attention wgmma body (one
+    instance a head dim): registers, spills, static shared memory and any
+    performance note.  A library built by an earlier run of the same
+    sources is loaded as it is, and ptxas has nothing to report."""
+    if "[nvcc flash_attention.cu]" not in log:
+        print("ptxas flash_wgmma_kernel: not run (the library for these "
+              "sources was built before)")
+        return
+    lines = log.splitlines()
+    found = False
+    for i, line in enumerate(lines):
+        if "Function properties for" in line and "flash_wgmma_kernel" in line:
+            dh = line.split("flash_wgmma_kernelILi")[1].split("E")[0]
+            print(f"ptxas flash_wgmma_kernel<{dh}>: {lines[i + 1].strip()}; "
+                  f"{lines[i + 2].replace('ptxas info    : ', '').strip()}")
+            found = True
+        elif "flash_wgmma_kernel" in line and "(C7" in line:
+            print(f"ptxas note: {line.strip()}")
+    if not found:
+        raise AssertionError("ptxas reported no flash_wgmma_kernel")
 
 
 def main() -> int:
@@ -1209,6 +1297,7 @@ def main() -> int:
         for mod in by_kernel.values():
             mod.LAUNCHES = 0
         merge_spmm.EPILOGUE_LAUNCHES = 0
+        flash_attention.LAUNCHES_BY_BODY.clear()
 
     def read_counts() -> dict:
         counts = {name: mod.LAUNCHES for name, mod in by_kernel.items()}
@@ -1217,7 +1306,12 @@ def main() -> int:
 
     # ------------------------------------------------------------ build --
     t0 = phase("build")
-    print(f"library: {_cuda.build(verbose=True)}")
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        lib_path = _cuda.build(verbose=True)
+    print(log.getvalue(), end="")
+    print(f"library: {lib_path}")
+    print_wgmma_ptxas(log.getvalue())
     done("build", t0)
 
     def llama_matrix(name, seed):
@@ -1542,6 +1636,8 @@ def main() -> int:
             row["backward_dB"] = backward["merge_dB"]
         if kname == "flash_attention":
             row["exp_limit_ms"] = acc["exp_ms"]
+            row["body"] = acc["body"]
+            row["sdpa_backends_ms"] = acc["sdpa_backends_ms"]
         rows.append(row)
     print("(ms, plain_ms, bound_ms, library_ms: one FFN layer's three "
           "matrices at n=128 f32 — the forward SpMM for rowsplit_spmm and "
@@ -1549,8 +1645,10 @@ def main() -> int:
           "transpose plan in merge_spmm's backward_dB; for moe_gemm one "
           "OLMoE-1B-7B MoE layer's three grouped GEMMs in bf16 (4096 rows, "
           "64 experts), library torch.bmm; for flash_attention one causal "
-          "call at Llama-3.2-1B's widths, batch 1 x 8192, bf16, library "
-          "scaled_dot_product_attention, exp_limit_ms the softmax's exps "
+          "call at Llama-3.2-1B's widths, batch 1 x 8192, bf16 (its body "
+          "beside it), library scaled_dot_product_attention's default "
+          "dispatch (each backend alone in sdpa_backends_ms, null where "
+          "it declines), exp_limit_ms the softmax's exps "
           "at 16 a clock an SM; launches: the serving runs "
           f"({forwards} forwards of each method), the training runs "
           f"({TRAIN_STEPS} steps of each method), the attention phase's "

@@ -25,7 +25,7 @@ CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "build"
 SOURCES = ("merge_spmm.cu", "rowsplit_spmm.cu", "sddmm.cu", "moe_gemm.cu",
            "flash_attention.cu")
-HEADERS = ("spmm_common.cuh",)
+HEADERS = ("spmm_common.cuh", "hopper.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
@@ -56,9 +56,9 @@ _SIGNATURES = {
     # device, stream
     "repro_moe_gemm": (_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # q, k, v, out, dtype, b, s, h, kv_heads, head_dim, scale, device,
-    # stream
+    # stream, body (out)
     "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                              _I, _P),
+                              _I, _P, ctypes.POINTER(_I)),
 }
 
 _lib = None

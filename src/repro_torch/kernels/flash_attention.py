@@ -1,16 +1,27 @@
 """Causal flash attention with online softmax.
 
 * :func:`flash_attention_cuda`: the hand-written CUDA kernel in
-  ``csrc/flash_attention.cu``.  One thread block owns 64 query rows of
-  one (batch, head), 4 warps of 16 rows each, and walks the keys in tiles
-  of 64 staged in shared memory, from the first tile to the diagonal one
-  (the only tile masked elementwise); tiles above the diagonal are never
-  visited.  The query tiles with the most key tiles are launched first.
-  The KV head of query head ``h`` is ``h // (heads // kv_heads)``, read
-  in place (no broadcast copy), and the (b, s, h, dh) strides are read
-  directly (no fold or transpose copy); a ragged s is masked, not padded.
-  The result does not depend on the tile sizes beyond bf16 rounding of
-  the online softmax's rescaled p.
+  ``csrc/flash_attention.cu``, three bodies chosen by (dtype, head_dim)
+  (:func:`body_for`):
+
+  - ``wgmma``, bf16 at dh 64 and 128 (the served models' widths): a
+    block owns 192 (dh 64) or 128 (dh 128) query rows of one (batch,
+    head); a producer warpgroup loads Q and a ring of 128-key K/V tiles
+    by TMA, and 3 or 2 consumer warpgroups of 64 rows run Q·Kᵀ and P·V
+    on the tensor cores with ``wgmma`` and the softmax in registers,
+    taking turns so that one's exps overlap the others' products;
+  - ``mma_sync``, bf16 at the other head dims: 64 query rows a block,
+    4 warps of 16 rows, ``mma.sync`` on 64-key tiles;
+  - ``simt``, float32: FMA outside the tensor cores.
+
+  Each walks its key tiles from the first to the diagonal (only the
+  tiles that cross it are masked elementwise); tiles above it are never
+  visited, and the query tiles with the most key tiles launch first.  The
+  KV head of query head ``h`` is ``h // (heads // kv_heads)``, read in
+  place (no broadcast copy), and the (b, s, h, dh) strides are read
+  directly (no fold or transpose copy); a ragged s is masked, not
+  padded.  The result does not depend on the tile sizes beyond bf16
+  rounding of the online softmax's rescaled p.
 * Its plain PyTorch version is
   ``repro_torch.kernels.ref.flash_attention_ref``.
 
@@ -18,6 +29,8 @@ The reference kernel has no backward, so neither has this one: a call
 that would need a gradient raises.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -28,9 +41,26 @@ DEFAULT_BK = 128
 NEG_INF = -1e30      # finite: no (-inf) - (-inf) can make a NaN
 HEAD_DIMS = tuple(range(16, 129, 16))   # the kernel's template instances
 
+# The kernel's bodies, by the code its C entry reports
+# (csrc/flash_attention.cu, enum Body).
+BODIES = ("simt", "mma_sync", "wgmma")
+WGMMA_HEAD_DIMS = (64, 128)
+
 # Launches of the flash attention kernel, one per flash_attention_cuda
-# call that ran it.
+# call that ran it, and the same launches by the body that ran.
 LAUNCHES = 0
+LAUNCHES_BY_BODY: dict[str, int] = {}
+
+
+def body_for(dtype: torch.dtype, dh: int) -> str:
+    """The body the kernel runs for operands of ``dtype`` and head_dim
+    ``dh``: ``wgmma`` for bfloat16 at dh 64 and 128, ``mma_sync`` for
+    bfloat16 at the other head dims, ``simt`` for float32."""
+    if dtype == torch.float32:
+        return "simt"
+    if dtype == torch.bfloat16:
+        return "wgmma" if dh in WGMMA_HEAD_DIMS else "mma_sync"
+    raise TypeError(f"the kernel takes float32 or bfloat16, not {dtype}")
 
 
 def check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
@@ -87,9 +117,13 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    body = ctypes.c_int(-1)
     _cuda.check(_cuda.library().repro_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         _cuda.DTYPE_CODES[q.dtype], b, s, h, kvh, dh, dh ** -0.5,
-        dev.index, _cuda.stream_of(q)), "flash_attention")
+        dev.index, _cuda.stream_of(q), ctypes.byref(body)),
+        "flash_attention")
+    name = BODIES[body.value]
     LAUNCHES += 1
+    LAUNCHES_BY_BODY[name] = LAUNCHES_BY_BODY.get(name, 0) + 1
     return out

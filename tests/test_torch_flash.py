@@ -7,6 +7,8 @@ of its query chunking; and the no-fallback contract of the CUDA wrapper.
 
 Tolerances are the reference's (tests/test_flash_kernel.py): f32
 rtol/atol 2e-5, bf16 3e-2."""
+import re
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -15,7 +17,8 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
-from repro_torch.kernels import flash_attention, ops, ref  # noqa: E402
+from repro_torch.kernels import (  # noqa: E402
+    _cuda, flash_attention, ops, ref)
 from repro_torch.models import layers  # noqa: E402
 
 DTYPES = {"f32": (jnp.float32, torch.float32),
@@ -37,6 +40,15 @@ def _mk(b, s, h, kvh, dh, seed=0):
     (1, 384, 8, 2, 64),     # GQA g=4, 3 blocks
     (1, 200, 4, 4, 32),     # ragged s (the reference pads to 256)
     (4, 32, 8, 2, 16),      # a served prefill shape, s below one block
+    # The CUDA kernel's tile edges (its wgmma body at dh 64 and 128:
+    # 128-key tiles, query tiles of 192 and 128 rows), b = 2 and g = 4:
+    # s = 129 puts one key past a tile and a tile across the diagonal;
+    # s = 200 leaves ragged last tiles, which the card zero-fills without
+    # reading the next batch.
+    (2, 129, 8, 2, 64),
+    (2, 200, 8, 2, 64),
+    (2, 129, 8, 2, 128),
+    (2, 200, 8, 2, 128),
 ])
 def test_flash_matches_reference_pallas(b, s, h, kvh, dh, dt):
     arrays = _mk(b, s, h, kvh, dh, seed=b * 1000 + s)
@@ -74,6 +86,7 @@ def test_dispatch_has_no_fallback():
     before = flash_attention.LAUNCHES
     ops.flash_attention(q, k, v)                  # impl=None on the CPU
     assert flash_attention.LAUNCHES == before == 0
+    assert flash_attention.LAUNCHES_BY_BODY == {}
     with pytest.raises(ValueError, match="CUDA tensors"):
         ops.flash_attention(q, k, v, impl="cuda")
     with pytest.raises(ValueError, match="unknown impl"):
@@ -89,6 +102,33 @@ def test_dispatch_has_no_fallback():
     with pytest.raises(RuntimeError, match="no backward"):
         flash_attention.flash_attention_cuda(q.requires_grad_(), k, v)
     assert flash_attention.LAUNCHES == 0
+    assert flash_attention.LAUNCHES_BY_BODY == {}
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("dh", flash_attention.HEAD_DIMS)
+def test_body_rule(dh, dt):
+    """Which body the kernel runs, as chip_smoke.py asserts it on the card:
+    wgmma for bf16 at the served models' dh 64 and 128, mma.sync for bf16
+    at the other head dims, SIMT for f32."""
+    tdt = DTYPES[dt][1]
+    want = ("simt" if tdt == torch.float32
+            else "wgmma" if dh in (64, 128) else "mma_sync")
+    assert flash_attention.body_for(tdt, dh) == want
+    with pytest.raises(TypeError):
+        flash_attention.body_for(torch.float16, dh)
+
+
+def test_body_codes_match_the_kernel():
+    """BODIES names the codes that the C entry reports (enum Body in
+    csrc/flash_attention.cu)."""
+    src = (_cuda.CSRC / "flash_attention.cu").read_text()
+    enum = re.search(r"enum Body : int \{([^}]*)\}", src).group(1)
+    codes = {name.strip(): int(val) for name, val in
+             (item.split("=") for item in enum.split(","))}
+    assert codes == {"kSimt": flash_attention.BODIES.index("simt"),
+                     "kMmaSync": flash_attention.BODIES.index("mma_sync"),
+                     "kWgmma": flash_attention.BODIES.index("wgmma")}
 
 
 def test_plain_is_differentiable_on_cpu():
