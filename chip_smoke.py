@@ -7,15 +7,21 @@ Run from the repository root, with no arguments, on a machine with one
 NVIDIA H100 (sm_90a) and the CUDA toolkit.  Phases, each timed:
 
 1. build    — compile the hand-written CUDA kernels from ``src/repro_torch/
-              csrc`` with nvcc (printing what ptxas reports, and the flash
-              attention wgmma body's registers, spills and shared memory);
+              csrc`` with nvcc (printing what ptxas reports, the flash
+              attention wgmma body's and the grouped GEMM's three bodies'
+              registers, spills and shared memory);
 2. parity   — hold each kernel against its plain PyTorch version on the
               card: the six matrix kinds of the reference's kernel tests and
               the two Llama-3.2-1B FFN shapes, n in {1, 32, 128, 160}, f32
               and bf16, 2-D and batched; the SpMMs with three epilogues, the
               SDDMM also on a 0-nnz pattern; the grouped GEMM on the
-              reference's sweep, a ragged case and OLMoE's two full-width
-              shapes with skewed group sizes, f32 and bf16;
+              reference's sweep, a ragged case, the wgmma body's edges
+              (d_in past a 64-deep stage, d_out past a 128-column tile
+              and a weight box wholly past d_out, two row tiles a block,
+              skewed sizes with empty experts, a tail block past the last
+              group) and OLMoE's two full-width
+              shapes with skewed group sizes, f32 and bf16, each call's
+              body (wgmma, wmma, simt) held to ``moe_gemm.body_for``;
 3. grad     — ``execute_plan`` under autograd, kernels against plain
               versions: dvals, dB, d_bias and d_res, both methods, three
               epilogues, 2-D and batched B, with the backward's launches;
@@ -24,7 +30,7 @@ NVIDIA H100 (sm_90a) and the CUDA toolkit.  Phases, each timed:
               yardstick the port never calls) and the least time the card
               could take, for the forward SpMMs and the backward's SDDMM and
               dB (merge on the transpose plan); the grouped GEMM at the MoE
-              path's shapes against ``torch.bmm``;
+              path's shapes against ``torch.bmm`` and its bound;
 5. serving  — ``serve_pruned`` on Llama-3.2-1B at full width (16 layers,
               random weights from a seed), batch 4 x prompt 32, keep 0.25,
               once with the §5.4 rule (row-split) and once forcing merge,
@@ -54,7 +60,8 @@ NVIDIA H100 (sm_90a) and the CUDA toolkit.  Phases, each timed:
               random weights from a seed, bf16 compute), batch 4 x prompt
               32, its MoE FFNs through the grouped GEMM kernel: prefill and
               decode-step times, tokens/s, launches per forward and over
-              the run, peak memory, a profiled decode step; layers 0 and
+              the run (all wgmma), peak memory, a profiled decode step and
+              the grouped GEMM's share of it; layers 0 and
               15 held against the plain version on their own inputs; the
               smoke OLMoE on the card against the CPU (the same tokens);
               and Llama-3.2-1B's ``generate`` (the GQA decode path) timed;
@@ -148,6 +155,19 @@ GEN_LEN = 16                   # the reference serve CLI's --gen default
 MOE_SWEEP = [((64, 0, 64, 128), 64, 96), ((8, 8, 8, 8), 16, 16),
              ((256,), 32, 48)]
 MOE_EXPERTS, MOE_TT, MOE_TOKENS = 64, 64, 4096
+# The wgmma body's edges: name -> (sizes, d_in, d_out, tt, tokens or None
+# for the sizes' sum).  Stages are 64 deep and items 64 rows x 128 columns
+# (two 64-column weight boxes; at d_out 136 the last item's second box
+# lies wholly past d_out and is not loaded).
+MOE_EDGES = {
+    "wgmma d_in 2056": ((64, 0, 128, 64), 2056, 256, 64, None),
+    "wgmma d_out 200": ((128, 64, 0, 64), 512, 200, 64, None),
+    "wgmma d_out 136 (box past)": ((64, 64), 256, 136, 64, None),
+    "wgmma tt 128": ((256, 0, 128, 128), 1024, 384, 128, None),
+    "wgmma skewed, empty experts": ((320, 0, 0, 64, 0, 128, 0, 0), 1024,
+                                    512, 64, None),
+    "wgmma tail past last group": ((64, 0, 128), 512, 256, 64, 384),
+}
 MOE_FULL = [(2048, 1024), (1024, 2048)]
 MOE_HOLD_LAYERS = (0, 15)
 # moe_apply through the kernel vs through its plain version, on the same h
@@ -250,10 +270,11 @@ def time_ms(fn, reps=7, inner=10) -> float:
     return statistics.median(times)
 
 
-def profile_device(fn, top=8) -> float:
+def profile_device(fn, top=8, part=None):
     """Device time of one warm call of ``fn`` by kernel (torch.profiler,
     device events only: a CPU op's own device time repeats its kernels');
-    prints the largest kernels and returns the total device ms."""
+    prints the largest kernels and returns the total device ms, and with
+    ``part`` also the ms of the kernels whose name holds ``part``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -276,7 +297,9 @@ def profile_device(fn, top=8) -> float:
         print(f"  device {ms:8.3f} ms  x{count:<4d} {name[:90]}")
     if not rows:
         print("  the profiler saw no device time")
-    return total
+    if part is None:
+        return total
+    return total, sum(r[0] for r in rows if part in r[2])
 
 
 def host_ms(fn, reps=5) -> float:
@@ -696,19 +719,23 @@ def parity_moe(dev) -> float:
     """The grouped GEMM kernel against its plain version on the card
     (through ``ops.moe_group_gemm``, one counted launch a call): the
     reference's sweep (tests/test_kernels.py, tt 8), a ragged case with
-    two row tiles per block, and OLMoE's two full-width shapes with skewed
-    group sizes that leave some experts empty; f32 and bf16.  Returns the
-    worst |error|."""
+    two row tiles per block, the wgmma body's edges and OLMoE's two
+    full-width shapes with skewed group sizes that leave some experts
+    empty; f32 and bf16, each call's body held to ``moe_gemm.body_for``.
+    Returns the worst |error|."""
     from repro_torch.kernels import moe_gemm, ops
     e_full, tt_full = MOE_EXPERTS, MOE_TT
-    cases = [(f"sweep {sizes}", sizes, din, dout, 8)
+    cases = [(f"sweep {sizes}", sizes, din, dout, 8, None)
              for sizes, din, dout in MOE_SWEEP]
-    cases.append(("ragged (192, 0, 96) tt 96", (192, 0, 96), 100, 200, 96))
+    cases.append(("ragged (192, 0, 96) tt 96", (192, 0, 96), 100, 200, 96,
+                  None))
+    cases += [(name, sizes, din, dout, tt, tokens)
+              for name, (sizes, din, dout, tt, tokens) in MOE_EDGES.items()]
     for din, dout in MOE_FULL:
         cases.append((f"full {MOE_TOKENS}x{din}->{dout}", None, din, dout,
-                      tt_full))
+                      tt_full, None))
     worst, seed = 0.0, 700
-    for name, sizes, din, dout, tt in cases:
+    for name, sizes, din, dout, tt, tokens in cases:
         seed += 1
         g = torch.Generator(device=dev).manual_seed(seed)
         if sizes is None:
@@ -722,24 +749,36 @@ def parity_moe(dev) -> float:
         else:
             sz = torch.tensor(sizes, dtype=torch.int32, device=dev)
             note = f"sizes {sizes}"
-        tokens, e = int(sz.sum()), sz.numel()
+        tokens = tokens or int(sz.sum())
+        e = sz.numel()
+        if tokens > int(sz.sum()):
+            note += f", {(tokens - int(sz.sum())) // tt} tail blocks"
         x32 = torch.randn(tokens, din, generator=g, device=dev)
         w32 = torch.randn(e, din, dout, generator=g, device=dev) * din ** -0.5
         for dt in (torch.float32, torch.bfloat16):
             tol = TOL[str(dt).removeprefix("torch.")]
             x, w = x32.to(dt), w32.to(dt)
             before = moe_gemm.LAUNCHES
+            moe_gemm.LAUNCHES_BY_BODY.clear()
             got = ops.moe_group_gemm(x, w, sz, tt=tt, impl="cuda")
-            if moe_gemm.LAUNCHES - before != 1:
-                raise AssertionError(f"moe_gemm {name}: counted "
-                                     f"{moe_gemm.LAUNCHES - before} launches")
+            body = moe_gemm.body_for(dt, tt, din, dout)
+            if moe_gemm.LAUNCHES - before != 1 or \
+                    moe_gemm.LAUNCHES_BY_BODY != {body: 1}:
+                raise AssertionError(
+                    f"moe_gemm {name} {dt}: counted "
+                    f"{moe_gemm.LAUNCHES - before} launches, by body "
+                    f"{moe_gemm.LAUNCHES_BY_BODY}; body_for names {body}")
             want = ops.moe_group_gemm(x, w, sz, tt=tt, impl="torch")
             torch.cuda.synchronize()
             d, r = check_close(f"moe_gemm {name} {dt}", got, want, tol)
+            if tokens > int(sz.sum()) and \
+                    got[int(sz.sum()):].float().abs().max().item() != 0:
+                raise AssertionError(f"moe_gemm {name} {dt}: a tail block "
+                                     "is not zeros")
             print(f"parity moe_gemm  {name:28s} ({tokens}, {din}) x ({e}, "
-                  f"{din}, {dout}) tt {tt} {str(dt):14s}: max_abs {d:.3e} "
-                  f"(tol rtol {tol['rtol']} atol {tol['atol']}; worst "
-                  f"|d|/(atol+rtol|want|) {r:.3f}); {note}")
+                  f"{din}, {dout}) tt {tt} {str(dt):14s} {body:5s}: max_abs "
+                  f"{d:.3e} (tol rtol {tol['rtol']} atol {tol['atol']}; "
+                  f"worst |d|/(atol+rtol|want|) {r:.3f}); {note}")
             worst = max(worst, d)
         del x32, w32
     return worst
@@ -772,7 +811,7 @@ def timing_moe(dev, card) -> dict:
     sizes = torch.full((e,), tokens // e, dtype=torch.int32, device=dev)
     block_expert = moe_gemm.plan_groups(sizes, tokens, tt)
     layer = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, cast_ms=0.0,
-                 bytes=0, flops=0)
+                 bytes=0, flops=0, body="wgmma")
     for (din, dout), uses in zip(MOE_FULL, (2, 1)):
         g = torch.Generator(device=dev).manual_seed(40 + din)
         x = torch.randn(tokens, din, generator=g, device=dev).to(
@@ -782,10 +821,16 @@ def timing_moe(dev, card) -> dict:
         w = w32.to(torch.bfloat16)
         kern = lambda: moe_gemm.moe_group_gemm_cuda(x, w, block_expert,
                                                     tt=tt)
+        moe_gemm.LAUNCHES_BY_BODY.clear()
         plain = lambda: ref.moe_group_gemm_ref(x, w, block_expert, tt)
         lib = lambda: torch.bmm(x.view(e, tokens // e, din), w)
         out, want = kern(), lib().reshape(tokens, dout)
         torch.cuda.synchronize()
+        body = moe_gemm.body_for(x.dtype, tt, din, dout)
+        if moe_gemm.LAUNCHES_BY_BODY != {body: 1} or body != "wgmma":
+            raise AssertionError(f"timing moe_gemm {din}->{dout}: ran "
+                                 f"{moe_gemm.LAUNCHES_BY_BODY}, body_for "
+                                 f"names {body}")
         # The yardstick computes the same function (loose: timing only).
         if not torch.allclose(out.float(), want.float(), rtol=2e-2,
                               atol=2e-2):
@@ -795,9 +840,10 @@ def timing_moe(dev, card) -> dict:
         p_ms = time_ms(plain, reps=5, inner=3)
         l_ms = time_ms(lib)
         c_ms = time_ms(lambda: w32.to(torch.bfloat16))
-        print(f"timing moe_gemm {tokens}x{din}->{dout} E {e} bf16: kernel "
-              f"{k_ms:.4f} ms ({k_ms / bound:.2f}x bound), plain {p_ms:.4f} "
-              f"ms, torch.bmm {l_ms:.4f} ms, bound {bound:.6f} ms ({by}: "
+        print(f"timing moe_gemm {tokens}x{din}->{dout} E {e} bf16 ({body}): "
+              f"kernel {k_ms:.4f} ms ({k_ms / bound:.3f}x bound, "
+              f"{k_ms / l_ms:.3f}x torch.bmm), plain {p_ms:.4f} ms, "
+              f"torch.bmm {l_ms:.4f} ms, bound {bound:.6f} ms ({by}: "
               f"{nbytes} B, {flops} flop); the f32->bf16 cast of this "
               f"weight {c_ms:.4f} ms; {card}")
         layer["ms"] += uses * k_ms
@@ -812,8 +858,9 @@ def timing_moe(dev, card) -> dict:
     layer["bound_ms"] = max(t_b, t_o) * 1e3
     layer["bound_by"] = "bytes" if t_b >= t_o else "operations"
     print(f"timing moe_gemm per MoE layer (w1+w3+w2): kernel "
-          f"{layer['ms']:.4f} ms ({layer['ms'] / layer['bound_ms']:.2f}x "
-          f"bound), plain {layer['plain_ms']:.4f} ms, torch.bmm "
+          f"{layer['ms']:.4f} ms ({layer['ms'] / layer['bound_ms']:.3f}x "
+          f"bound, {layer['ms'] / layer['library_ms']:.3f}x torch.bmm), "
+          f"plain {layer['plain_ms']:.4f} ms, torch.bmm "
           f"{layer['library_ms']:.4f} ms, bound {layer['bound_ms']:.6f} ms "
           f"({layer['bound_by']}: {layer['bytes']} B, {layer['flops']} "
           f"flop); the three weight casts {layer['cast_ms']:.4f} ms; {card}")
@@ -907,6 +954,7 @@ def decode(dev, card, reset_counts, read_counts) -> dict:
     the grouped GEMM's launches in the OLMoE run and its worst |error|."""
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.engine import clear_cache
+    from repro_torch.kernels import moe_gemm
     from repro_torch.launch import serve
     from repro_torch.models import model as M
     from repro_torch.runtime import steps
@@ -935,6 +983,11 @@ def decode(dev, card, reset_counts, read_counts) -> dict:
     want["moe_gemm"] = per_forward * forwards
     if counts != want:
         raise AssertionError(f"generate launched {counts}, expected {want}")
+    bodies = dict(moe_gemm.LAUNCHES_BY_BODY)
+    print(f"grouped GEMM bodies over the generate run: {bodies}")
+    if bodies != {"wgmma": want["moe_gemm"]}:
+        raise AssertionError(f"generate's grouped GEMMs ran {bodies}, "
+                             f"expected {want['moe_gemm']} wgmma")
     # One prefill and one decode step alone: 48 launches each.
     prefill = steps.make_prefill_step(cfg, cache_len=SERVE_PROMPT + GEN_LEN
                                       + 8)
@@ -964,7 +1017,8 @@ def decode(dev, card, reset_counts, read_counts) -> dict:
     pre_ms = host_ms(one_prefill)
     pre_busy = profile_device(one_prefill, top=4)
     step_ms = host_ms(one_step)
-    busy = profile_device(one_step, top=10)
+    busy, gemm_ms = profile_device(one_step, top=10,
+                                   part="moe_gemm_wgmma_kernel")
     print(f"profile prefill: device busy {pre_busy:.3f} ms of the "
           f"{pre_ms:.3f} ms warm prefill (host clock, median of 5; the "
           f"generate run's first prefill {times[0]:.3f} ms includes CUDA's "
@@ -973,7 +1027,8 @@ def decode(dev, card, reset_counts, read_counts) -> dict:
           f"{step_ms:.3f} ms warm step (host clock, median of 5; idle share "
           f"{1 - busy / step_ms:.3f}); steady decode "
           f"{SERVE_BATCH * 1e3 / step_ms:.1f} tok/s (batch / warm step); "
-          f"{card}")
+          f"grouped GEMM (wgmma) {gemm_ms:.3f} ms of the device time "
+          f"({gemm_ms / busy:.3f}); {card}")
     worst = hold_moe_layers(cfg, params, prompt, dev, read_counts)
     del params, st, one_step, one_prefill
     torch.cuda.empty_cache()
@@ -1241,27 +1296,48 @@ def attention(dev, card, reset_counts, read_counts) -> dict:
     return row
 
 
-def print_wgmma_ptxas(log: str) -> None:
+# What ptxas reports, by source: (kernel name as mangled, label).
+PTXAS_KERNELS = {
+    "flash_attention.cu": [("flash_wgmma_kernel", "flash_wgmma_kernel")],
+    "moe_gemm.cu": [("moe_gemm_wgmma_kernel", "moe_gemm wgmma"),
+                    ("moe_gemm_bf16_kernelILb1", "moe_gemm wmma (16-byte)"),
+                    ("moe_gemm_bf16_kernelILb0", "moe_gemm wmma (scalar)"),
+                    ("moe_gemm_f32_kernel", "moe_gemm simt")],
+}
+
+
+def print_ptxas(log: str) -> None:
     """What ptxas reported for the flash attention wgmma body (one
-    instance a head dim): registers, spills, static shared memory and any
-    performance note.  A library built by an earlier run of the same
-    sources is loaded as it is, and ptxas has nothing to report."""
-    if "[nvcc flash_attention.cu]" not in log:
-        print("ptxas flash_wgmma_kernel: not run (the library for these "
-              "sources was built before)")
-        return
+    instance a head dim) and the grouped GEMM's bodies: registers, spills,
+    static shared memory and any performance note; fails if the grouped
+    GEMM's wgmma body spills.  A library built by an earlier run of the
+    same sources is loaded as it is, and ptxas has nothing to report."""
     lines = log.splitlines()
-    found = False
-    for i, line in enumerate(lines):
-        if "Function properties for" in line and "flash_wgmma_kernel" in line:
-            dh = line.split("flash_wgmma_kernelILi")[1].split("E")[0]
-            print(f"ptxas flash_wgmma_kernel<{dh}>: {lines[i + 1].strip()}; "
-                  f"{lines[i + 2].replace('ptxas info    : ', '').strip()}")
-            found = True
-        elif "flash_wgmma_kernel" in line and "(C7" in line:
-            print(f"ptxas note: {line.strip()}")
-    if not found:
-        raise AssertionError("ptxas reported no flash_wgmma_kernel")
+    for src, kernels in PTXAS_KERNELS.items():
+        if f"[nvcc {src}]" not in log:
+            print(f"ptxas {src}: not run (the library for these sources "
+                  "was built before)")
+            continue
+        for mangled, label in kernels:
+            found = False
+            for i, line in enumerate(lines):
+                if "Function properties for" in line and mangled in line:
+                    if mangled == "flash_wgmma_kernel":
+                        dh = line.split("flash_wgmma_kernelILi")[1]
+                        label = f"flash_wgmma_kernel<{dh.split('E')[0]}>"
+                    spills = lines[i + 1].strip()
+                    print(f"ptxas {label}: {spills}; "
+                          f"{lines[i + 2].replace('ptxas info    : ', '')}"
+                          .strip())
+                    if mangled == "moe_gemm_wgmma_kernel" and \
+                            not spills.startswith(
+                                "0 bytes stack frame, 0 bytes spill stores"):
+                        raise AssertionError(f"ptxas: {label} spills")
+                    found = True
+                elif mangled in line and "(C7" in line:
+                    print(f"ptxas note: {line.strip()}")
+            if not found:
+                raise AssertionError(f"ptxas reported no {mangled}")
 
 
 def main() -> int:
@@ -1298,6 +1374,7 @@ def main() -> int:
             mod.LAUNCHES = 0
         merge_spmm.EPILOGUE_LAUNCHES = 0
         flash_attention.LAUNCHES_BY_BODY.clear()
+        moe_gemm.LAUNCHES_BY_BODY.clear()
 
     def read_counts() -> dict:
         counts = {name: mod.LAUNCHES for name, mod in by_kernel.items()}
@@ -1311,7 +1388,7 @@ def main() -> int:
         lib_path = _cuda.build(verbose=True)
     print(log.getvalue(), end="")
     print(f"library: {lib_path}")
-    print_wgmma_ptxas(log.getvalue())
+    print_ptxas(log.getvalue())
     done("build", t0)
 
     def llama_matrix(name, seed):
@@ -1634,6 +1711,8 @@ def main() -> int:
             "bound_by": acc["bound_by"], "library_ms": acc["library_ms"]}
         if kname == "merge_spmm":
             row["backward_dB"] = backward["merge_dB"]
+        if kname == "moe_gemm":
+            row["body"] = acc["body"]
         if kname == "flash_attention":
             row["exp_limit_ms"] = acc["exp_ms"]
             row["body"] = acc["body"]
@@ -1644,7 +1723,8 @@ def main() -> int:
           "merge_spmm, the values cotangent for sddmm, dB = A^T g on the "
           "transpose plan in merge_spmm's backward_dB; for moe_gemm one "
           "OLMoE-1B-7B MoE layer's three grouped GEMMs in bf16 (4096 rows, "
-          "64 experts), library torch.bmm; for flash_attention one causal "
+          "64 experts; body the one the OLMoE path runs), library torch.bmm; "
+          "for flash_attention one causal "
           "call at Llama-3.2-1B's widths, batch 1 x 8192, bf16 (its body "
           "beside it), library scaled_dot_product_attention's default "
           "dispatch (each backend alone in sdpa_backends_ms, null where "

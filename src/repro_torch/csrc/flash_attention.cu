@@ -875,35 +875,6 @@ dim3 fa_grid(const FaLaunch& a, int rows) {
               static_cast<unsigned>((a.s + rows - 1) / rows));
 }
 
-// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime
-// (cudaGetDriverEntryPointByVersion), so the library links without -lcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) {
-      return nullptr;
-    }
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // The map of a bf16 (b, s, heads, dh) tensor as the 4-D tensor {dh, heads,
 // s, b} (innermost first), boxes of {64, 1, rows, 1} with the 128-byte
 // swizzle: one head's rows of a 64-column slice.  s and b are separate
@@ -911,7 +882,7 @@ EncodeTiled encode_tiled() {
 // next batch.
 cudaError_t tensor_map(CUtensorMap* map, const void* ptr, int b, int s,
                        int heads, int dh, int rows) {
-  const EncodeTiled fn = encode_tiled();
+  const hopper::EncodeTiled fn = hopper::encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(dh),
                               static_cast<cuuint64_t>(heads),

@@ -53,8 +53,9 @@ _SIGNATURES = {
     "repro_sddmm": (_P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I,
                     _P),
     # x, w, dtype, block_expert, out, tokens, d_in, d_out, n_experts, tt,
-    # device, stream
-    "repro_moe_gemm": (_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # device, stream, body (out)
+    "repro_moe_gemm": (_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+                       ctypes.POINTER(_I)),
     # q, k, v, out, dtype, b, s, h, kv_heads, head_dim, scale, device,
     # stream, body (out)
     "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,

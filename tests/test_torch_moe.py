@@ -8,6 +8,7 @@ Tolerances are the reference's: the grouped GEMM f32 rtol/atol 2e-5 and
 bf16 2e-2 (tests/test_kernels.py), the MoE output 2e-4 and its aux loss
 rtol 1e-5 at f32 compute (tests/test_models.py)."""
 import dataclasses
+import re
 
 import pytest
 
@@ -22,7 +23,7 @@ from repro.kernels import moe_gemm as jmoe_gemm  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.models import moe as jmoe  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
-from repro_torch.kernels import moe_gemm, ops, ref  # noqa: E402
+from repro_torch.kernels import _cuda, moe_gemm, ops, ref  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 
 ARCH = "olmoe-1b-7b"
@@ -112,6 +113,62 @@ def test_impl_dispatch_and_no_fallback():
         ops.moe_group_gemm(x, w, sizes, tt=8, impl="pallas")
     with pytest.raises(ValueError, match="multiple of tt"):
         ops.moe_group_gemm(x[:12], w, sizes, tt=8)
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+@pytest.mark.parametrize("tt,d_in,d_out,aligned,bf16_body", [
+    (8, 64, 96, True, "wmma"),        # the reference's tt-8 sweep
+    (8, 16, 16, True, "wmma"),
+    (8, 32, 48, True, "wmma"),
+    (96, 100, 200, True, "wmma"),     # ragged tt and d_in
+    (64, 2048, 1024, True, "wgmma"),  # OLMoE-1B-7B w1 / w3
+    (64, 1024, 2048, True, "wgmma"),  # OLMoE-1B-7B w2
+    (128, 1024, 384, True, "wgmma"),  # two row tiles a block
+    (64, 2056, 256, True, "wgmma"),   # d_in past a 64-deep stage
+    (64, 512, 200, True, "wgmma"),    # d_out past a 128-column tile
+    (64, 2052, 256, True, "wmma"),    # d_in not a multiple of 8
+    (64, 512, 204, True, "wmma"),     # d_out not a multiple of 8
+    (64, 0, 128, True, "wmma"),       # no d_in: TMA maps no empty dim
+    (32, 2048, 1024, True, "wmma"),   # tt below a wgmma tile
+    (64, 2048, 1024, False, "wmma"),  # an operand off 16 bytes
+])
+def test_body_rule(tt, d_in, d_out, aligned, bf16_body, dt):
+    """Which body the kernel runs, as the C entry reports it and
+    chip_smoke.py asserts it on the card: wgmma for bf16 at tt a multiple
+    of 64, d_in a positive multiple of 8, d_out a multiple of 8 and
+    16-byte aligned operands; WMMA for the other bf16 calls; SIMT for
+    f32."""
+    tdt = DTYPES[dt][1]
+    want = "simt" if tdt == torch.float32 else bf16_body
+    assert moe_gemm.body_for(tdt, tt, d_in, d_out, aligned=aligned) == want
+    with pytest.raises(TypeError):
+        moe_gemm.body_for(torch.float16, tt, d_in, d_out)
+
+
+def test_body_codes_match_the_kernel():
+    """BODIES names the codes that the C entry reports (enum MoeBody in
+    csrc/moe_gemm.cu)."""
+    src = (_cuda.CSRC / "moe_gemm.cu").read_text()
+    enum = re.search(r"enum MoeBody : int \{([^}]*)\}", src).group(1)
+    codes = {name.strip(): int(val) for name, val in
+             (item.split("=") for item in enum.split(","))}
+    assert codes == {"kBodySimt": moe_gemm.BODIES.index("simt"),
+                     "kBodyWmma": moe_gemm.BODIES.index("wmma"),
+                     "kBodyWgmma": moe_gemm.BODIES.index("wgmma")}
+
+
+@pytest.mark.parametrize("impl", [None, "torch"])
+def test_plain_runs_count_no_launch(impl):
+    """On the CPU, and under impl="torch", the op runs the plain version:
+    no launch is counted, by body or in all."""
+    sizes = torch.tensor([64, 0, 64], dtype=torch.int32)
+    x = torch.randn(128, 16, dtype=torch.bfloat16)
+    w = torch.randn(3, 16, 24, dtype=torch.bfloat16)
+    before = moe_gemm.LAUNCHES
+    by_body = dict(moe_gemm.LAUNCHES_BY_BODY)
+    ops.moe_group_gemm(x, w, sizes, tt=64, impl=impl)
+    assert moe_gemm.LAUNCHES == before
+    assert moe_gemm.LAUNCHES_BY_BODY == by_body == {}
 
 
 def _moe_both(capacity_factor, seed=0, batch=2, seq=8):
