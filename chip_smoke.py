@@ -14,7 +14,12 @@ NVIDIA H100 (sm_90a) and the CUDA toolkit.  Phases, each timed:
               card: the six matrix kinds of the reference's kernel tests and
               the two Llama-3.2-1B FFN shapes, n in {1, 32, 128, 160}, f32
               and bf16, 2-D and batched; the SpMMs with three epilogues, the
-              SDDMM also on a 0-nnz pattern; the grouped GEMM on the
+              SDDMM and merge also on a 0-nnz pattern (every row
+              epilogue(0)); each merge call bit-identical to a second one
+              and its body (f32x4, bf16x8, scalar) held to
+              ``merge_spmm.body_for``; merge also on rows across three or
+              more of its workers and on workers with no live slot; the
+              grouped GEMM on the
               reference's sweep, a ragged case, the wgmma body's edges
               (d_in past a 64-deep stage, d_out past a 128-column tile
               and a weight box wholly past d_out, two row tiles a block,
@@ -29,14 +34,17 @@ NVIDIA H100 (sm_90a) and the CUDA toolkit.  Phases, each timed:
               cuSPARSE call (``torch.sparse.mm`` / ``sampled_addmm``, a
               yardstick the port never calls) and the least time the card
               could take, for the forward SpMMs and the backward's SDDMM and
-              dB (merge on the transpose plan); the grouped GEMM at the MoE
-              path's shapes against ``torch.bmm`` and its bound;
+              dB (merge on the transpose plan); the device operations of one
+              merge call (its range kernel and fix-up, no fill or memset);
+              merge, row-split and ``torch.sparse.mm`` on a skewed
+              power-law matrix (held to nothing); the grouped GEMM at the
+              MoE path's shapes against ``torch.bmm`` and its bound;
 5. serving  — ``serve_pruned`` on Llama-3.2-1B at full width (16 layers,
               random weights from a seed), batch 4 x prompt 32, keep 0.25,
               once with the §5.4 rule (row-split) and once forcing merge,
-              with launch counts, plans built while serving, and the two
-              runs' logits compared; plus the smoke config on the card
-              against the same model on the CPU;
+              with launch counts, plans built while serving, the SpMMs'
+              device time, and the two runs' logits compared; plus the
+              smoke config on the card against the same model on the CPU;
 6. training — sparse fine-tuning of layer 0's pruned FFN at full width
               (``make_sparse_train_step``, 5 SGD steps toward the dense
               FFN's output) for both methods: losses, step times, device
@@ -91,8 +99,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
 # Kernel vs plain version on the same card and inputs.  f32: the
-# reference's 2e-5 (both sum in f32, in other orders — the merge kernel's
-# atomics change its order from run to run).  bf16 outputs: 2e-2, one
+# reference's 2e-5 (both sum in f32, in other orders — the merge kernel
+# sums a row's partials range by range, then its split rows' partials in
+# worker order; the plain version scatter-adds).  bf16 outputs: 2e-2, one
 # bf16 rounding (2^-8 relative) of f32 sums that differ in the last bits.
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
@@ -113,9 +122,9 @@ SDDMM_TOL = {"float32": dict(rtol=2e-5, atol=1e-4),
              "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 # Gradients, kernels vs plain versions: the reference's gradient rtol 1e-4;
 # atol 1e-4 because dvals and dB are f32 sums of up to 2 x 128 (dvals) and
-# 2048 (dB of w1) products summed in other orders, dB's with the merge
-# kernel's atomics in an order that changes from run to run.  bf16: one
-# bf16 rounding of the forward and of each cotangent.
+# 2048 (dB of w1) products summed in other orders (dB's by the merge
+# kernel's ranges and split-row fix-up, in the same order on every call).
+# bf16: one bf16 rounding of the forward and of each cotangent.
 GRAD_TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
             "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 # The full-width kernel step's gradients vs the plain step's: rtol 1e-4 and
@@ -148,6 +157,11 @@ LLAMA_FFN = {"w1": (8192, 2048), "w2": (2048, 8192)}
 KEEP = 0.25
 SERVE_BATCH, SERVE_PROMPT, SEED = 4, 32, 0
 GEN_LEN = 16                   # the reference serve CLI's --gen default
+
+# The skewed matrix of the timing phase: power_law_csr (the reference's
+# power_law recipe) at m = k = 262,144 with mean row length 16, about as
+# many nonzeros as one Llama FFN matrix, held to nothing.
+POWER_LAW = dict(seed=SEED, m=262_144, d=16, alpha=1.6)
 
 # The grouped GEMM: the reference's sweep (tests/test_kernels.py, sizes,
 # d_in, d_out at tt 8) and OLMoE-1B-7B's two shapes — w1/w3 (d_model ->
@@ -270,11 +284,10 @@ def time_ms(fn, reps=7, inner=10) -> float:
     return statistics.median(times)
 
 
-def profile_device(fn, top=8, part=None):
-    """Device time of one warm call of ``fn`` by kernel (torch.profiler,
-    device events only: a CPU op's own device time repeats its kernels');
-    prints the largest kernels and returns the total device ms, and with
-    ``part`` also the ms of the kernels whose name holds ``part``."""
+def device_ops(fn) -> list:
+    """The device operations of one warm call of ``fn`` (torch.profiler,
+    device events only: a CPU op's own device time repeats its kernels'),
+    as (ms, count, name), largest first."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -291,7 +304,14 @@ def profile_device(fn, top=8, part=None):
         if us is None:
             us = e.self_cuda_time_total
         rows.append((us / 1e3, e.count, e.key))
-    rows.sort(reverse=True)
+    return sorted(rows, reverse=True)
+
+
+def profile_device(fn, top=8, part=None):
+    """Device time of one warm call of ``fn`` by kernel; prints the
+    largest kernels and returns the total device ms, and with ``part`` also
+    the ms of the kernels whose name holds ``part``."""
+    rows = device_ops(fn)
     total = sum(r[0] for r in rows)
     for ms, count, name in rows[:top]:
         print(f"  device {ms:8.3f} ms  x{count:<4d} {name[:90]}")
@@ -333,6 +353,54 @@ def check_close(what, got, want, tol):
             f"{d.nan_to_num(float('inf')).max().item():.3e}")
     return d.max().item(), (d / (tol["atol"] + tol["rtol"] * w.abs())
                             ).max().item()
+
+
+def schedule_facts(structure, nnz_pad, g):
+    """For the merge kernel's ranges of ``g`` chunks: (the most workers
+    whose ranges hold nonzeros of one row, the workers whose range holds no
+    live slot)."""
+    from repro_torch.kernels import merge_spmm
+    n_chunks, t = structure["cols"].shape
+    workers = -(-n_chunks // g)
+    live = (structure["slot_nz"] < nnz_pad).reshape(-1)
+    worker = torch.arange(n_chunks * t, device=live.device) // (t * g)
+    rows = (structure["tile"].long()[:, None] * merge_spmm.TM
+            + structure["lrow"].long()).reshape(-1)
+    held = torch.bincount(worker[live], minlength=workers)
+    pairs = torch.unique(rows[live] * workers + worker[live])
+    span = int(torch.bincount(pairs // workers).max()) if pairs.numel() \
+        else 0
+    return span, int((held == 0).sum())
+
+
+def check_body(what, before, body):
+    """Raise unless the merge calls since ``before`` (a copy of
+    ``merge_spmm.LAUNCHES_BY_BODY``) were one launch of ``body``."""
+    from repro_torch.kernels import merge_spmm
+    ran = {key: v - before.get(key, 0)
+           for key, v in merge_spmm.LAUNCHES_BY_BODY.items()
+           if v != before.get(key, 0)}
+    if ran != {body: 1}:
+        raise AssertionError(f"{what}: the merge kernel ran {ran}, "
+                             f"expected {{{body!r}: 1}} (body_for)")
+
+
+def profile_merge_call(fn) -> None:
+    """The device operations of one merge call: exactly the range kernel
+    and its fix-up, no fill or memset (the kernel zeroes nothing)."""
+    rows = device_ops(fn)
+    for ms, count, name in rows:
+        print(f"  merge call, device {ms:8.4f} ms  x{count:<3d} {name[:100]}")
+    names = [name for _, _, name in rows]
+    bad = [name for name in names
+           if "fill" in name.lower() or "memset" in name.lower()]
+    if bad:
+        raise AssertionError(f"a merge call fills or zeroes memory: {bad}")
+    if sorted(count for _, count, _ in rows) != [1, 1] or not (
+            any("merge_range_kernel" in x for x in names)
+            and any("merge_fixup_kernel" in x for x in names)):
+        raise AssertionError(f"a merge call ran {rows}, expected one range "
+                             "kernel and one fix-up")
 
 
 def parity_sddmm(matrices, dev) -> float:
@@ -388,9 +456,9 @@ def parity_sddmm(matrices, dev) -> float:
 def parity_grad(matrices, eps, dev, read_counts) -> dict:
     """``execute_plan`` under autograd, impl="cuda" against impl="torch":
     dvals, dB, d_bias and d_res.  Checks that one backward needing dvals
-    and dB launches 1 merge (transpose plan) and 1 SDDMM, and the merge
-    epilogue iff B is bf16 (dB is written in B's dtype).  Returns the worst
-    |error| of dvals (the SDDMM) and dB (the merge kernel)."""
+    and dB launches 1 merge (transpose plan; its range kernel and fix-up)
+    and 1 SDDMM.  Returns the worst |error| of dvals (the SDDMM) and dB
+    (the merge kernel)."""
     from repro_torch.core import ExecutionConfig, PlanPolicy, build_plan, \
         execute_plan
     worst = {"sddmm": 0.0, "merge_spmm": 0.0}
@@ -447,9 +515,7 @@ def parity_grad(matrices, eps, dev, read_counts) -> dict:
                                    for key, v in read_counts().items()}
                             want = dict.fromkeys(ran, 0)
                             if impl == "cuda":
-                                want.update(merge_spmm=1, sddmm=1,
-                                            merge_epilogue=int(
-                                                dt != torch.float32))
+                                want.update(merge_spmm=1, sddmm=1)
                             if ran != want:
                                 raise AssertionError(
                                     f"grad {method} {mname}: the backward "
@@ -472,8 +538,8 @@ def parity_grad(matrices, eps, dev, read_counts) -> dict:
                 worst["sddmm"] = max(worst["sddmm"], err["dvals"])
                 worst["merge_spmm"] = max(worst["merge_spmm"], err["dB"])
     print("backward launches per call needing dvals and dB: 1 merge on "
-          "the transpose plan + 1 SDDMM (+1 merge epilogue for bf16 B), "
-          "checked on every case")
+          "the transpose plan (range kernel + fix-up) + 1 SDDMM, checked on "
+          "every case")
     return worst
 
 
@@ -577,6 +643,72 @@ def timing_backward(llama_matrix, dev, card) -> dict:
     return out
 
 
+def timing_power_law(dev, card) -> dict:
+    """Merge, row-split and ``torch.sparse.mm`` on a skewed matrix, where
+    the merge path is meant to win: ``power_law_csr`` at POWER_LAW (about as
+    many nonzeros as one Llama FFN matrix, row lengths from 1 to ~12 k),
+    B (k, 128) f32.  Row-split's plan pads every row to the longest, so its
+    ELL arrays are built here a block of rows at a time (the planner's
+    int64 temporaries for all rows would not fit the card).  Timed and
+    printed, held to nothing but agreeing with the library call."""
+    from repro_torch.core import PlanPolicy, build_plan, power_law_csr
+    from repro_torch.kernels import merge_spmm, rowsplit_spmm
+    seed, m, d, alpha = (POWER_LAW[x] for x in ("seed", "m", "d", "alpha"))
+    n = SERVE_BATCH * SERVE_PROMPT
+    t0 = time.perf_counter()
+    a = power_law_csr(seed, m, m, d, alpha=alpha, device=dev)
+    made_s = time.perf_counter() - t0
+    nnz = a.nnz()
+    lengths = a.row_lengths()
+    longest = int(lengths.max())
+    gen = torch.Generator(device=dev).manual_seed(50)
+    b = torch.randn(m, n, generator=gen, device=dev)
+    fwd = build_plan(a, PlanPolicy(method="merge",
+                                   with_transpose=False)).fwd
+    l = rowsplit_spmm.DEFAULT_TL * -(-longest // rowsplit_spmm.DEFAULT_TL)
+    ell = dict(cols=torch.empty((m, l), dtype=torch.int32, device=dev),
+               slot_nz=torch.empty((m, l), dtype=torch.int32, device=dev))
+    block = 2048
+    for r0 in range(0, m, block):
+        part = rowsplit_spmm.ell_slots(
+            a, torch.arange(r0, min(r0 + block, m), device=dev), l)
+        for key in ell:
+            ell[key][r0:r0 + block] = part[key]
+    with warnings.catch_warnings():      # "beta state" notices
+        warnings.simplefilter("ignore")
+        sp = torch.sparse_csr_tensor(a.row_ptr, a.col_ind, a.vals, (m, m),
+                                     check_invariants=True)
+    cases = {
+        "merge": lambda: merge_spmm.merge_spmm_cuda(fwd, a.vals, b[None], m),
+        "rowsplit": lambda: rowsplit_spmm.rowsplit_spmm_cuda(
+            ell, a.vals, b[None], m),
+        "library": lambda: torch.sparse.mm(sp, b),
+    }
+    lib = cases["library"]()
+    for name in ("merge", "rowsplit"):
+        got = cases[name]()[0]
+        torch.cuda.synchronize()
+        if not torch.allclose(got, lib, rtol=1e-3, atol=1e-3):
+            raise AssertionError(f"power law: {name} disagrees with "
+                                 "torch.sparse.mm")
+    out = {name: time_ms(fn, reps=5, inner=5) for name, fn in cases.items()}
+    nbytes = nnz * 8 + (m + 1) * 4 + 2 * m * n * 4
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, 2 * nnz * n / FP32_FLOP_PER_S
+    out.update(bound_ms=max(t_b, t_o) * 1e3,
+               bound_by="bytes" if t_b >= t_o else "operations", nnz=nnz,
+               longest_row=longest, ell_width=l)
+    print(f"power law {m} x {m} (seed {seed}, d {d}, alpha {alpha}; made in "
+          f"{made_s:.1f} s on the host): nnz {nnz}, rows {int(lengths.min())}"
+          f"-{longest} long (mean {nnz / m:.2f}), n {n} f32: merge "
+          f"{out['merge']:.4f} ms, row-split {out['rowsplit']:.4f} ms (ELL "
+          f"{m} x {l}, {2 * m * l * 4 / 2**30:.2f} GiB of plan arrays), "
+          f"torch.sparse.mm {out['library']:.4f} ms, bound "
+          f"{out['bound_ms']:.6f} ms ({out['bound_by']}); {card}")
+    del ell, fwd, sp, a, b, lib
+    torch.cuda.empty_cache()
+    return out
+
+
 def training(cfg, dev, card, reset_counts, read_counts) -> dict:
     """Sparse fine-tuning of layer 0's pruned FFN at full width, once with
     the §5.4 rule (row-split) and once forcing merge; returns the launches
@@ -585,6 +717,7 @@ def training(cfg, dev, card, reset_counts, read_counts) -> dict:
 
     from repro_torch.core import ExecutionConfig, PlanPolicy
     from repro_torch.engine import cache_stats, clear_cache
+    from repro_torch.kernels import merge_spmm
     from repro_torch.models import model as M
     from repro_torch.models import sparse as S
     from repro_torch.runtime import steps
@@ -627,11 +760,15 @@ def training(cfg, dev, card, reset_counts, read_counts) -> dict:
             times.append((time.perf_counter() - t0) * 1e3)
             losses.append(loss.item())
         counts = read_counts()
+        merge_bodies = dict(merge_spmm.LAUNCHES_BY_BODY)
         replans = cache_stats().misses - misses
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
         for name in totals:
             totals[name] += counts[name]
         per_step = {name: v / TRAIN_STEPS for name, v in counts.items()}
+        # A step: 3 forward SpMMs, 3 SDDMMs (dvals) and 1 merge (dB for the
+        # hidden activation that feeds w2, on the transpose plan; x needs
+        # none); a merge call is its range kernel and fix-up, counted once.
         want = dict.fromkeys(per_step, 0.0)
         want.update(merge_spmm=1.0, sddmm=3.0)
         want[kname] += 3.0
@@ -653,7 +790,10 @@ def training(cfg, dev, card, reset_counts, read_counts) -> dict:
               f"before the steps (dense and pruned FFN, plans, x, y), "
               f"{peak:.3f} GiB peak during them; "
               f"plans built during the steps {replans}; launches per step "
-              f"{per_step}; {card}")
+              f"{per_step}, merge bodies {merge_bodies}; {card}")
+        if merge_bodies != {"f32x4": counts["merge_spmm"]}:
+            raise AssertionError(f"train {method}: merge ran bodies "
+                                 f"{merge_bodies}, expected f32x4 only")
         if per_step != want:
             raise AssertionError(f"train {method}: launches per step "
                                  f"{per_step}, expected {want}")
@@ -1298,6 +1438,11 @@ def attention(dev, card, reset_counts, read_counts) -> dict:
 
 # What ptxas reports, by source: (kernel name as mangled, label).
 PTXAS_KERNELS = {
+    "merge_spmm.cu": [("merge_range_kernelILi1EfffEE", "merge f32x4"),
+                      ("merge_range_kernelILi2E13__nv_bfloat16S1_S1_EE",
+                       "merge bf16x8"),
+                      ("merge_range_kernelILi0EfffEE", "merge scalar"),
+                      ("merge_fixup_kernelILi1EfEE", "merge fix-up")],
     "flash_attention.cu": [("flash_wgmma_kernel", "flash_wgmma_kernel")],
     "moe_gemm.cu": [("moe_gemm_wgmma_kernel", "moe_gemm wgmma"),
                     ("moe_gemm_bf16_kernelILb1", "moe_gemm wmma (16-byte)"),
@@ -1307,8 +1452,9 @@ PTXAS_KERNELS = {
 
 
 def print_ptxas(log: str) -> None:
-    """What ptxas reported for the flash attention wgmma body (one
-    instance a head dim) and the grouped GEMM's bodies: registers, spills,
+    """What ptxas reported for the merge kernel's bodies and fix-up, the
+    flash attention wgmma body (one instance a head dim) and the grouped
+    GEMM's bodies: registers, spills,
     static shared memory and any performance note; fails if the grouped
     GEMM's wgmma body spills.  A library built by an earlier run of the
     same sources is loaded as it is, and ptxas has nothing to report."""
@@ -1372,14 +1518,12 @@ def main() -> int:
     def reset_counts():
         for mod in by_kernel.values():
             mod.LAUNCHES = 0
-        merge_spmm.EPILOGUE_LAUNCHES = 0
+        merge_spmm.LAUNCHES_BY_BODY.clear()
         flash_attention.LAUNCHES_BY_BODY.clear()
         moe_gemm.LAUNCHES_BY_BODY.clear()
 
     def read_counts() -> dict:
-        counts = {name: mod.LAUNCHES for name, mod in by_kernel.items()}
-        counts["merge_epilogue"] = merge_spmm.EPILOGUE_LAUNCHES
-        return counts
+        return {name: mod.LAUNCHES for name, mod in by_kernel.items()}
 
     # ------------------------------------------------------------ build --
     t0 = phase("build")
@@ -1409,6 +1553,20 @@ def main() -> int:
     # A 0-nnz pattern: one padded slot, which the SDDMM must leave at 0.
     zero_nnz = {"zero_nnz": csr.random_csr(99, 64, 32, nnz_per_row=0,
                                            device=dev)}
+    # The merge schedule's edges at its ranges of 1024 slots: rows of
+    # 2200-4100 nonzeros, each across three or more workers (values at
+    # the Llama init scale k^-0.5, so C is O(1) as on the model path); and
+    # 16 rows of 40 followed by 1084 empty ones, whose one-chunk tiles
+    # leave whole ranges without a live slot (their rows are epilogue(0)).
+    long_rows = csr.random_csr(97, 16, 8192, nnz_per_row=(2200, 4100),
+                               device=dev)
+    head = csr.random_csr(98, 16, 64, nnz_per_row=40, device=dev)
+    merge_edges = {
+        "long_rows": csr.CSR(long_rows.row_ptr, long_rows.col_ind,
+                             long_rows.vals * 8192 ** -0.5, (16, 8192)),
+        "empty_tail": csr.CSR(torch.cat([head.row_ptr, head.row_ptr[-1:]
+                                         .repeat(1084)]),
+                              head.col_ind, head.vals, (1100, 64))}
     eps = {"none": None,
            "bias+gelu": Epilogue(bias=True, activation="gelu"),
            "relu+scale+residual": Epilogue(activation="relu", scale=0.5,
@@ -1418,13 +1576,24 @@ def main() -> int:
         if method is None:                      # the SDDMM, below
             continue
         fn = execs[method]
-        for mname, a in matrices.items():
+        # Merge also on the 0-nnz pattern (every row is epilogue(0), which
+        # its plain version computes) and on its schedule's edges.
+        mats = dict(matrices, **zero_nnz, **merge_edges) \
+            if method == "merge" else matrices
+        spans = idles = 0
+        for mname, a in mats.items():
             plan = build_plan(a, PlanPolicy(method=method))
             m, k = a.shape
+            if method == "merge":
+                span, idle = schedule_facts(
+                    plan.fwd, a.nnz_pad, merge_spmm.range_chunks(
+                        plan.fwd["cols"].shape[1]))
+                spans, idles = max(spans, span), max(idles, idle)
             for dt in (torch.float32, torch.bfloat16):
                 tol = TOL[str(dt).removeprefix("torch.")]
                 max_abs = max_rel = ratio = 0.0
                 cases = 0
+                bodies = {}
                 for n in (1, 32, 128, 160):
                     for lead in ((), (2,)):
                         rng_seed += 1
@@ -1442,18 +1611,26 @@ def main() -> int:
                                 kw["residual"] = res
                             vals = a.vals.to(dt)
                             mod = counters[method]
-                            before = (mod.LAUNCHES,
-                                      merge_spmm.EPILOGUE_LAUNCHES)
+                            before = mod.LAUNCHES
+                            by_body = dict(merge_spmm.LAUNCHES_BY_BODY)
                             got = fn(plan.fwd, vals, b, impl="cuda", **kw)
-                            ran = (mod.LAUNCHES - before[0],
-                                   merge_spmm.EPILOGUE_LAUNCHES - before[1])
-                            epi = int(method == "merge" and (
-                                ep is not None or dt != torch.float32))
-                            if ran != (1, epi):
+                            if mod.LAUNCHES - before != 1:
                                 raise AssertionError(
-                                    f"{kname} {mname}: counted launches "
-                                    f"(kernel, merge epilogue) {ran}, "
-                                    f"expected (1, {epi})")
+                                    f"{kname} {mname}: counted "
+                                    f"{mod.LAUNCHES - before} launches, "
+                                    "expected 1")
+                            if method == "merge":
+                                body = merge_spmm.body_for(dt, n)
+                                check_body(f"{kname} {mname} n={n}",
+                                           by_body, body)
+                                bodies[body] = bodies.get(body, 0) + 1
+                                again = fn(plan.fwd, vals, b, impl="cuda",
+                                           **kw)
+                                if not torch.equal(got, again):
+                                    raise AssertionError(
+                                        f"{kname} {mname} {dt} n={n} "
+                                        f"batch={lead} epilogue={ep}: two "
+                                        "calls on the same inputs differ")
                             want = fn(plan.fwd, vals, b, impl="torch", **kw)
                             torch.cuda.synchronize()
                             if got.shape != want.shape or \
@@ -1478,12 +1655,21 @@ def main() -> int:
                                     tol["atol"] + tol["rtol"] * w)
                                 ).max().item())
                             cases += 1
+                extra = ""
+                if method == "merge":
+                    extra = (f"; bodies {bodies}, each call bit-identical "
+                             f"to a second one; a row spans up to {span} "
+                             f"workers, {idle} workers hold no live slot")
                 print(f"parity {kname:13s} {mname:13s} {a.shape} "
                       f"{str(dt):14s} cases {cases}: max_abs {max_abs:.3e} "
                       f"max_rel {max_rel:.3e} (tol rtol {tol['rtol']} "
                       f"atol {tol['atol']}; worst |d|/(atol+rtol|want|) "
-                      f"{ratio:.3f})")
+                      f"{ratio:.3f}){extra}")
                 worst[kname] = max(worst[kname], max_abs)
+        if method == "merge" and (spans < 3 or idles < 1):
+            raise AssertionError(f"merge parity missed its schedule's edges: "
+                                 f"a row across {spans} workers (want >= 3), "
+                                 f"{idles} workers without a live slot")
     worst["sddmm"] = parity_sddmm(dict(matrices, **zero_nnz), dev)
     worst["moe_gemm"] = parity_moe(dev)
     done("parity", t0)
@@ -1551,6 +1737,8 @@ def main() -> int:
             plan_bytes = sum(t.numel() * t.element_size() for t in reads)
             k_ms = time_ms(kern)
             p_ms = time_ms(plain, reps=5, inner=3)
+            if method == "merge" and mat_name == "w1":
+                profile_merge_call(kern)
             print(f"timing {kname:13s} {mat_name} {(m, k)} nnz {nnz} n {n}: "
                   f"kernel {k_ms:.4f} ms ({k_ms / bound:.1f}x bound), plain "
                   f"{p_ms:.4f} ms, cuSPARSE {lib_ms:.4f} ms, bound "
@@ -1573,6 +1761,7 @@ def main() -> int:
               f"({acc['bound_by']}: {layer_bytes} B, {layer_flops} flop); "
               f"{card}")
     backward = timing_backward(llama_matrix, dev, card)
+    power_law = timing_power_law(dev, card)
     per_layer["sddmm"] = backward["sddmm"]
     per_layer["moe_gemm"] = timing_moe(dev, card)
     done("timing", t0)
@@ -1598,7 +1787,6 @@ def main() -> int:
         rep = serve.serve_pruned(cfg, params, prompt, KEEP,
                                  policy=PlanPolicy(method=method))
         counts = read_counts()
-        epilogues = counts.pop("merge_epilogue")
         for name in KERNELS:
             serving[name] += counts[name]
         used = KERNELS[kname]["method"]
@@ -1607,19 +1795,22 @@ def main() -> int:
               f"warm forward {rep.warm_s * 1e3:.2f} ms, {rep.tok_per_s:.0f} "
               f"tok/s; plans built during serving {rep.replans}; launches "
               f"{counts} over {forwards} forwards ("
-              f"{counts[kname] // forwards} of {kname} a forward), merge "
-              f"epilogue kernel {epilogues} (f32, no epilogue); device "
+              f"{counts[kname] // forwards} of {kname} a forward); device "
               f"memory "
               f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB held, "
               f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB "
               f"peak (params, cached plans of the run so far); {card}")
         want = 3 * cfg.num_layers * forwards
-        if set(rep.methods.values()) != {used} or epilogues or \
+        if set(rep.methods.values()) != {used} or \
                 counts[kname] != want or sum(counts.values()) != want:
             raise AssertionError(
                 f"method={method}: expected {want} launches of {kname} "
-                f"alone, got {counts} and {epilogues} of the merge "
-                f"epilogue (plans {rep.methods})")
+                f"alone, got {counts} (plans {rep.methods})")
+        if kname == "merge_spmm" and \
+                merge_spmm.LAUNCHES_BY_BODY != {"f32x4": want}:
+            raise AssertionError(f"serving merge ran bodies "
+                                 f"{merge_spmm.LAUNCHES_BY_BODY}, expected "
+                                 f"f32x4 (B (d_in, 128) f32)")
         lg = rep.logits
         if lg.shape != (SERVE_BATCH, SERVE_PROMPT, cfg.vocab_size) or \
                 not torch.isfinite(lg).all():
@@ -1634,10 +1825,14 @@ def main() -> int:
             with torch.no_grad():
                 fwd(params, blocks, prompt)
 
-        dev_ms = profile_device(forward)
+        # The SpMM kernels by name: rowsplit_kernel; merge_range_kernel
+        # and merge_fixup_kernel.
+        part = "merge_" if kname == "merge_spmm" else "rowsplit_kernel"
+        dev_ms, spmm_ms = profile_device(forward, part=part)
         print(f"profile method={method}: device busy {dev_ms:.3f} ms of the "
               f"{rep.warm_s * 1e3:.2f} ms warm forward (idle share "
-              f"{1 - dev_ms / (rep.warm_s * 1e3):.3f}); {card}")
+              f"{1 - dev_ms / (rep.warm_s * 1e3):.3f}), the "
+              f"{3 * cfg.num_layers} SpMMs {spmm_ms:.3f} ms; {card}")
         del rep, blocks, fwd
     d = (logits["rowsplit_spmm"] - logits["merge_spmm"]).abs()
     rel = (torch.linalg.vector_norm(d) / torch.linalg.vector_norm(
@@ -1711,6 +1906,7 @@ def main() -> int:
             "bound_by": acc["bound_by"], "library_ms": acc["library_ms"]}
         if kname == "merge_spmm":
             row["backward_dB"] = backward["merge_dB"]
+            row["power_law"] = power_law
         if kname == "moe_gemm":
             row["body"] = acc["body"]
         if kname == "flash_attention":

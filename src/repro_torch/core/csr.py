@@ -115,7 +115,34 @@ def random_csr(seed: int, m: int, k: int, *, nnz_per_row,
         lengths = rng.integers(lo, hi + 1, size=m)
     else:
         lengths = np.full(m, int(nnz_per_row))
-    lengths = np.minimum(lengths, k).astype(np.int64)
+    return _csr_from_lengths(rng, lengths, m, k, pad_to=pad_to, dtype=dtype,
+                             device=device)
+
+
+def power_law_csr(seed: int, m: int, k: int, d: float, *,
+                  alpha: float = 1.6, dtype=torch.float32,
+                  device="cpu") -> CSR:
+    """Heavy-tailed (Pareto) row lengths rescaled to mean ``d``: a few
+    long rows and many short ones (web and social graphs, the imbalance
+    that row-per-warp kernels suffer and the merge path evens out).
+
+    ``alpha`` is the Pareto tail index (smaller: heavier tail).  Lengths
+    are clipped to ``k``.  Drawn with ``numpy.random.default_rng(seed)`` in
+    the order of the reference's ``repro.matrices.generators.power_law``,
+    so the same seed gives the same matrix.
+    """
+    rng = np.random.default_rng(seed)
+    raw = rng.pareto(alpha, size=m) + 1.0
+    lengths = np.floor(raw * (d / raw.mean())).astype(np.int64)
+    return _csr_from_lengths(rng, lengths, m, k, dtype=dtype, device=device)
+
+
+def _csr_from_lengths(rng: np.random.Generator, lengths: np.ndarray, m: int,
+                      k: int, *, pad_to: int | None = None, dtype,
+                      device) -> CSR:
+    """Rows of the given lengths (clipped to [0, k]); sorted unique uniform
+    columns per row, then standard normal values, drawn from ``rng``."""
+    lengths = np.minimum(np.maximum(lengths, 0), k).astype(np.int64)
     row_ptr = np.zeros(m + 1, np.int32)
     np.cumsum(lengths, out=row_ptr[1:])
     nnz = int(row_ptr[-1])

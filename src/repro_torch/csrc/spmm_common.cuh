@@ -70,6 +70,61 @@ __device__ __forceinline__ float apply_epilogue(float c, const Epilogue& ep,
   return c;
 }
 
+// The epilogue on K consecutive columns starting at flat index idx0 (a
+// multiple of 4, residual 16-byte aligned): residual read as float4s.
+template <int K>
+__device__ __forceinline__ void apply_epilogue_vec(const float* c, float* y,
+                                                   const Epilogue& ep,
+                                                   int64_t row,
+                                                   int64_t idx0) {
+  static_assert(K % 4 == 0, "K must be a multiple of 4");
+  const float bias = ep.bias != nullptr ? ep.bias[row] : 0.0f;
+#pragma unroll
+  for (int q = 0; q < K; ++q) {
+    float x = c[q];
+    if (ep.bias != nullptr) x += bias;
+    if (ep.act == kRelu) {
+      x = fmaxf(x, 0.0f);
+    } else if (ep.act == kGelu) {
+      x = gelu_tanh(x);
+    }
+    if (ep.has_scale) x *= ep.scale;
+    y[q] = x;
+  }
+  if (ep.residual != nullptr) {
+#pragma unroll
+    for (int q = 0; q < K; q += 4) {
+      const float4 r =
+          *reinterpret_cast<const float4*>(ep.residual + idx0 + q);
+      y[q] += r.x;
+      y[q + 1] += r.y;
+      y[q + 2] += r.z;
+      y[q + 3] += r.w;
+    }
+  }
+}
+
+// K values cast to TO and stored at dst with 16-byte stores (8-byte for
+// four bf16); dst aligned to the store's size.
+template <typename TO, int K>
+__device__ __forceinline__ void store_vec(TO* dst, const float* y) {
+  static_assert(K % 4 == 0, "K must be a multiple of 4");
+#pragma unroll
+  for (int q = 0; q < K; q += 4) {
+    if constexpr (sizeof(TO) == 4) {
+      *reinterpret_cast<float4*>(dst + q) =
+          make_float4(y[q], y[q + 1], y[q + 2], y[q + 3]);
+    } else {
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(y[q], y[q + 1]);
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(y[q + 2], y[q + 3]);
+      uint2 v;
+      v.x = *reinterpret_cast<const uint32_t*>(&lo);
+      v.y = *reinterpret_cast<const uint32_t*>(&hi);
+      *reinterpret_cast<uint2*>(dst + q) = v;
+    }
+  }
+}
+
 inline bool known_dtype(int code) { return code == kF32 || code == kBF16; }
 
 // Calls f(T{}) with T the C++ type of a dtype code (checked beforehand

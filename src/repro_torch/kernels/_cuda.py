@@ -40,14 +40,12 @@ _SIGNATURES = {
     # stream
     "repro_rowsplit_spmm": (_P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _F, _P,
                             _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    # cols, lrow, slot_nz, tile, vals, vals_dtype, b, b_dtype, scratch,
-    # batch, n_chunks, t, tm, nnz_pad, m, k, n, device, stream
-    "repro_merge_spmm": (_P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I,
-                         _I, _I, _I, _I, _I, _P),
-    # scratch, bias, residual, act, has_scale, scale, out, out_dtype,
-    # batch, m, n, device, stream
-    "repro_merge_epilogue": (_P, _P, _P, _I, _I, _F, _P, _I, _I, _I, _I, _I,
-                             _P),
+    # cols, lrow, slot_nz, tile, first, vals, vals_dtype, b, b_dtype, bias,
+    # residual, act, has_scale, scale, out, out_dtype, carry, batch,
+    # n_chunks, t, tm, nnz_pad, m, k, n, g, device, stream, body (out)
+    "repro_merge_spmm": (_P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I,
+                         _F, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _I, _P, ctypes.POINTER(_I)),
     # rows, cols, valid, dc, dc_dtype, b, b_dtype, out, batch, nnz_pad, m,
     # k, n, device, stream
     "repro_sddmm": (_P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I,

@@ -6,13 +6,21 @@
   those of the reference planner (``repro.kernels.merge_spmm``), so plans
   of the two packages compare with ``array_equal``.
 * **Phase 2** (:func:`merge_spmm_cuda`): the hand-written CUDA kernel in
-  ``csrc/merge_spmm.cu``.  One warp per (batch, chunk, 128-column slice)
-  accumulates its chunk's rows in registers and carries them out into a
-  zeroed float32 C with atomics; a second launch applies the fused
-  epilogue and casts.  Its plain PyTorch version is
-  ``repro_torch.kernels.ref.merge_execute_ref``.
+  ``csrc/merge_spmm.cu``, the paper's merge path on the chunk stream.
+  Worker w (a warp per batch and 128-column slice) takes the ``G`` chunks
+  [w G, (w + 1) G) -- equal nonzeros for every worker -- and owns the rows
+  between two split rows (:func:`split_rows`).  Rows inside its range are
+  summed in registers and stored once with the epilogue; the two end rows
+  go to a small float32 carry buffer that a second launch, the fix-up,
+  sums in worker order.  No atomics, no zeroed scratch, the same bits on
+  every call.  Three bodies by B's dtype, n and alignment
+  (:func:`body_for`).  Its plain PyTorch version is
+  ``repro_torch.kernels.ref.merge_execute_ref``; ``ref.merge_schedule_ref``
+  replays its schedule in tensor ops.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -23,11 +31,69 @@ from . import _cuda
 TM = 8
 DEFAULT_T = 16
 
-# Launches of the merge kernel, one per merge_spmm_cuda call that ran it.
+# The kernel's bodies, by the code its C entry reports
+# (csrc/merge_spmm.cu, enum MergeBody).
+BODIES = ("scalar", "f32x4", "bf16x8")
+# Nonzero slots a worker takes: 64 chunks at the default t, so a pruned
+# Llama-3.2-1B FFN matrix (4.2 M nonzeros) gives ~4.1 k warps, about one
+# wave of 4 blocks of 8 warps on each of 132 SMs, and a carry buffer of
+# 4 MB against 2 GB of B rows read.  Timed on the H100 at the Llama
+# shapes, 16, 32, 48 and 96 chunks were no faster.
+SLOTS_PER_WORKER = 1024
+
+# Launches of the merge kernel, one per merge_spmm_cuda call (the range
+# kernel and its fix-up), and the same launches by the body that ran.
 LAUNCHES = 0
-# Launches of its second kernel, the elementwise epilogue and cast, one per
-# call with an epilogue or a non-float32 output.
-EPILOGUE_LAUNCHES = 0
+LAUNCHES_BY_BODY: dict[str, int] = {}
+
+
+def body_for(dtype: torch.dtype, n: int, *, aligned: bool = True) -> str:
+    """The body the kernel runs for B of ``dtype`` and ``n`` columns
+    (``aligned``: b, out, residual and the carry buffer start on 16-byte
+    boundaries): ``f32x4`` for float32 with n % 4 == 0, ``bf16x8`` for
+    bfloat16 with n % 8 == 0, ``scalar`` otherwise."""
+    if dtype not in _cuda.DTYPE_CODES:
+        raise TypeError(f"the kernel takes float32 or bfloat16, not {dtype}")
+    if aligned and dtype == torch.float32 and n % 4 == 0:
+        return "f32x4"
+    if aligned and dtype == torch.bfloat16 and n % 8 == 0:
+        return "bf16x8"
+    return "scalar"
+
+
+def range_chunks(t: int) -> int:
+    """G, the chunks of one worker's range at chunk size ``t``: about
+    SLOTS_PER_WORKER slots."""
+    return max(1, SLOTS_PER_WORKER // t)
+
+
+def split_rows(structure: dict, m: int, g: int, nnz_pad: int):
+    """The split rows S_{-1} .. S_{W-1} of ranges of ``g`` chunks, as the
+    kernel computes them (``split_at`` in ``csrc/merge_spmm.cu``): worker w
+    owns the rows [S_{w-1}, S_w], sharing each end row with its neighbour.
+
+    S_{-1} = 0 and S_{W-1} = m - 1.  Between them, chunk c = (j + 1) g
+    opens worker j + 1: where it opens a row tile, the tile's first row;
+    else the row of its slot 0 when that slot is live (``slot_nz`` below
+    the sentinel ``nnz_pad``; every chunk of a tile but its last is full);
+    else m - 1, and worker j + 1 opens past the last live slot: it and all
+    later workers hold nothing.  Returns ``(split (W + 1,) int64,
+    past_end (W,) bool)`` on the structure's device.
+    """
+    n_chunks = structure["cols"].shape[0]
+    dev = structure["cols"].device
+    workers = -(-n_chunks // g)
+    c = torch.arange(1, workers, dtype=torch.int64, device=dev) * g
+    tile = structure["tile"].long()[c]
+    opens = structure["first"][c].bool()
+    live = structure["slot_nz"][c, 0] < nnz_pad
+    inner = torch.where(live, tile * TM + structure["lrow"][c, 0].long(),
+                        m - 1)
+    mid = torch.where(opens, tile * TM, inner)
+    ends = torch.tensor([0], dtype=torch.int64, device=dev)
+    no = torch.zeros(1, dtype=torch.bool, device=dev)
+    return (torch.cat([ends, mid, ends + (m - 1)]),
+            torch.cat([no, ~opens & ~live]))
 
 
 def plan_merge_structure(a: CSR, *, t: int = DEFAULT_T, tm: int = TM):
@@ -125,10 +191,11 @@ def merge_spmm_cuda(structure: dict, vals: torch.Tensor, b: torch.Tensor,
     ``slot_nz``).  ``epilogue`` with ``bias (m,)`` / ``residual
     (batch, m, n)`` per its flags is applied after all partial sums are
     in, in float32, with one cast to ``out_dtype`` (default: b's dtype).
-    Launches on the current stream without synchronising; raises on any
-    operand the kernel does not take.
+    Workers take :func:`range_chunks` chunks each.  Launches the range
+    kernel and its fix-up on the current stream without synchronising;
+    raises on any operand the kernel does not take.
     """
-    global LAUNCHES, EPILOGUE_LAUNCHES
+    global LAUNCHES
     if not b.is_cuda:
         raise ValueError(
             f"merge_spmm_cuda runs on CUDA tensors; b is on {b.device} "
@@ -141,36 +208,39 @@ def merge_spmm_cuda(structure: dict, vals: torch.Tensor, b: torch.Tensor,
     batch, k, n = b.shape
     if t > 32:
         raise ValueError(f"the merge kernel takes chunks of at most 32 "
-                         f"nonzeroes (one warp); this plan has t={t}")
+                         f"nonzeroes; this plan has t={t}")
     for name in ("cols", "lrow", "slot_nz"):
         _cuda.require(structure[name], name, device=dev,
                       dtypes=(torch.int32,), shape=(n_chunks, t))
-    _cuda.require(structure["tile"], "tile", device=dev,
-                  dtypes=(torch.int32,), shape=(n_chunks,))
+    for name in ("tile", "first"):
+        _cuda.require(structure[name], name, device=dev,
+                      dtypes=(torch.int32,), shape=(n_chunks,))
     _cuda.require(vals, "vals", device=dev, dtypes=floats)
     _cuda.require(b, "b", device=dev, dtypes=floats)
     out_dtype = b.dtype if out_dtype is None else out_dtype
     if out_dtype not in _cuda.DTYPE_CODES:
         raise TypeError(f"the merge kernel writes float32 or bfloat16, "
                         f"not {out_dtype}")
+    g = range_chunks(t)
     bias, residual, act, has_scale, scale = _cuda.epilogue_args(
         epilogue, bias, residual, device=dev, m=m, batch=batch, n=n)
-    lib = _cuda.library()
-    stream = _cuda.stream_of(b)
-    scratch = torch.zeros((batch, m, n), dtype=torch.float32, device=dev)
-    _cuda.check(lib.repro_merge_spmm(
+    out = torch.empty((batch, m, n), dtype=out_dtype, device=dev)
+    if out.numel() == 0:
+        return out
+    workers = -(-n_chunks // g)
+    carry = torch.empty((batch, workers, 2, n), dtype=torch.float32,
+                        device=dev)
+    body = ctypes.c_int(-1)
+    _cuda.check(_cuda.library().repro_merge_spmm(
         structure["cols"].data_ptr(), structure["lrow"].data_ptr(),
         structure["slot_nz"].data_ptr(), structure["tile"].data_ptr(),
-        vals.data_ptr(), _cuda.DTYPE_CODES[vals.dtype], b.data_ptr(),
-        _cuda.DTYPE_CODES[b.dtype], scratch.data_ptr(), batch, n_chunks, t,
-        TM, vals.shape[0], m, k, n, dev.index, stream), "merge_spmm")
+        structure["first"].data_ptr(), vals.data_ptr(),
+        _cuda.DTYPE_CODES[vals.dtype], b.data_ptr(),
+        _cuda.DTYPE_CODES[b.dtype], _cuda.ptr(bias), _cuda.ptr(residual),
+        act, has_scale, scale, out.data_ptr(), _cuda.DTYPE_CODES[out_dtype],
+        carry.data_ptr(), batch, n_chunks, t, TM, vals.shape[0], m, k, n, g,
+        dev.index, _cuda.stream_of(b), ctypes.byref(body)), "merge_spmm")
+    name = BODIES[body.value]
     LAUNCHES += 1
-    if epilogue is None and out_dtype == torch.float32:
-        return scratch
-    out = torch.empty((batch, m, n), dtype=out_dtype, device=dev)
-    _cuda.check(lib.repro_merge_epilogue(
-        scratch.data_ptr(), _cuda.ptr(bias), _cuda.ptr(residual), act,
-        has_scale, scale, out.data_ptr(), _cuda.DTYPE_CODES[out_dtype],
-        batch, m, n, dev.index, stream), "merge_spmm epilogue")
-    EPILOGUE_LAUNCHES += 1
+    LAUNCHES_BY_BODY[name] = LAUNCHES_BY_BODY.get(name, 0) + 1
     return out

@@ -13,7 +13,7 @@ from repro_torch.core.csr import CSR
 from repro_torch.core.epilogue import apply_epilogue
 
 from .flash_attention import NEG_INF
-from .merge_spmm import apply_vals
+from .merge_spmm import apply_vals, split_rows
 
 
 def spmm_dense_ref(a: CSR, b: torch.Tensor) -> torch.Tensor:
@@ -67,6 +67,93 @@ def merge_execute_ref(structure: dict, vals: torch.Tensor, b: torch.Tensor,
                           device=b2.device)
         out.index_add_(0, rows, prods.reshape(-1, b2.shape[-1]))
         return _finish(out[:m], ep, bias_col, res2, odt)
+
+    res = residual if ep is not None and ep.residual else None
+    if b.dim() == 2:
+        return one(b, res)
+    return _map_leading(one, b, res)
+
+
+def merge_schedule_ref(structure: dict, vals: torch.Tensor,
+                       b: torch.Tensor, m: int, tm: int, g: int, *,
+                       epilogue=None, bias=None, residual=None,
+                       acc_dtype=torch.float32,
+                       out_dtype=None) -> torch.Tensor:
+    """The merge kernel's schedule replayed in tensor ops: the same C as
+    :func:`merge_execute_ref`, reached the kernel's way.
+
+    Worker w takes the ``g`` chunks [w g, (w + 1) g) and owns the rows
+    between its split rows (``merge_spmm.split_rows``).  The rows strictly
+    inside its range, empty ones included, are complete in it; its two end
+    rows go to a carry buffer (zero where it holds none of the row).  The
+    fix-up then sums each split row's partials in worker order, reading no
+    worker that opens past the last live slot (those hold nothing and
+    write nothing).  Raises if a live slot falls outside its worker's rows
+    or a row of C is not written exactly once.  Arguments as in
+    :func:`merge_execute_ref`.
+    """
+    odt = torch.promote_types(vals.dtype, b.dtype) if out_dtype is None \
+        else out_dtype
+    ep = epilogue
+    n_chunks, t = structure["cols"].shape
+    nnz_pad = vals.shape[0]
+    split, past_end = split_rows(structure, m, g, nnz_pad)
+    split, past_end = split.tolist(), past_end.tolist()
+    workers = len(split) - 1
+    live = (structure["slot_nz"] < nnz_pad).reshape(-1)
+    rows = (structure["tile"].long()[:, None] * tm
+            + structure["lrow"].long()).reshape(-1)
+    cols = structure["cols"].long().reshape(-1)
+    slot_vals = apply_vals(structure, vals).to(acc_dtype).reshape(-1)
+    bias_col = bias.to(acc_dtype)[:, None] \
+        if ep is not None and ep.bias else None
+
+    def one(b2, res2):
+        n = b2.shape[-1]
+        prods = slot_vals[:, None] * b2.to(acc_dtype)[cols]
+        c = torch.zeros((m, n), dtype=acc_dtype, device=b2.device)
+        written = torch.zeros(m, dtype=torch.int64, device=b2.device)
+        carry = torch.empty((workers, 2, n), dtype=acc_dtype,
+                            device=b2.device)
+        for w in range(workers):
+            lo, hi = split[w], split[w + 1]
+            span = slice(w * g * t, min((w + 1) * g, n_chunks) * t)
+            r, p = rows[span][live[span]], prods[span][live[span]]
+            if past_end[w]:
+                if r.numel():
+                    raise AssertionError(f"worker {w} opens past the last "
+                                         "live slot but holds one")
+                continue
+            if r.numel() and (r.min() < lo or r.max() > hi):
+                raise AssertionError(f"worker {w}: a live slot's row lies "
+                                     f"outside [{lo}, {hi}]")
+            sums = torch.zeros((hi - lo + 1, n), dtype=acc_dtype,
+                               device=b2.device).index_add_(0, r - lo, p)
+            carry[w, 0] = sums[0]
+            carry[w, 1] = sums[-1] if hi > lo else 0
+            c[lo + 1:hi] = sums[1:-1]
+            written[lo + 1:hi] += 1
+        for j in range(-1, workers):        # the fix-up, split row S_j
+            row = split[j + 1]
+            if j >= 0 and split[j] == row:
+                continue                    # not the first of its run
+            jb = j
+            while jb + 1 < workers and split[jb + 2] == row:
+                jb += 1
+            acc = torch.zeros(n, dtype=acc_dtype, device=b2.device)
+            for w in range(max(j, 0), min(jb + 1, workers - 1) + 1):
+                if past_end[w]:             # it and all after hold nothing
+                    break
+                if w - 1 >= j:              # S_{w-1} = row: w starts there
+                    acc = acc + carry[w, 0]
+                if w <= jb:                 # S_w = row: w ends there
+                    acc = acc + carry[w, 1]
+            c[row] = acc
+            written[row] += 1
+        if not bool((written == 1).all()):
+            raise AssertionError(f"rows written other than once: "
+                                 f"{written.tolist()}")
+        return _finish(c, ep, bias_col, res2, odt)
 
     res = residual if ep is not None and ep.residual else None
     if b.dim() == 2:

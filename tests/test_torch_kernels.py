@@ -165,7 +165,8 @@ def test_kernel_wrappers_refuse_cpu_tensors(method):
     b = torch.ones(1, 8, 3)
     wrapper = merge_spmm.merge_spmm_cuda if method == "merge" else \
         rowsplit_spmm.rowsplit_spmm_cuda
-    counts = lambda: (merge_spmm.LAUNCHES, merge_spmm.EPILOGUE_LAUNCHES,
+    counts = lambda: (merge_spmm.LAUNCHES,
+                      dict(merge_spmm.LAUNCHES_BY_BODY),
                       rowsplit_spmm.LAUNCHES)
     before = counts()
     with pytest.raises(ValueError, match="CUDA tensors"):
