@@ -7,19 +7,24 @@ Run from the repository root, with no arguments, on a machine with one
 NVIDIA H100 (sm_90a) and the CUDA toolkit.  Phases, each timed:
 
 1. build    — compile the hand-written CUDA kernels from ``src/repro_torch/
-              csrc`` with nvcc (printing what ptxas reports, the flash
-              attention wgmma body's and the grouped GEMM's three bodies'
-              registers, spills and shared memory);
+              csrc`` with nvcc (printing what ptxas reports, the row-split,
+              SDDMM and merge kernels' three bodies', the flash attention
+              wgmma body's and the grouped GEMM's three bodies' registers,
+              spills and shared memory; the f32 vector bodies of row-split
+              and the SDDMM and the grouped GEMM's wgmma body must not
+              spill);
 2. parity   — hold each kernel against its plain PyTorch version on the
-              card: the six matrix kinds of the reference's kernel tests and
-              the two Llama-3.2-1B FFN shapes, n in {1, 32, 128, 160}, f32
-              and bf16, 2-D and batched; the SpMMs with three epilogues, the
-              SDDMM and merge also on a 0-nnz pattern (every row
-              epilogue(0)); each merge call bit-identical to a second one
-              and its body (f32x4, bf16x8, scalar) held to
-              ``merge_spmm.body_for``; merge also on rows across three or
-              more of its workers and on workers with no live slot; the
-              grouped GEMM on the
+              card: the six matrix kinds of the reference's kernel tests,
+              the two Llama-3.2-1B FFN shapes, a 0-nnz pattern (every row
+              epilogue(0)) and merge's schedule edges (rows of 2200-4100
+              nonzeros; 16 rows then 1084 empty ones), n in {1, 32, 128,
+              160}, f32 and bf16, 2-D and batched; the SpMMs with three
+              epilogues; every SpMM and SDDMM call bit-identical to a
+              second one and its body (f32x4, bf16x8, scalar) held to
+              ``_cuda.body_for``; row-split also with each row split in
+              each other number of parts of 1, 2 and 8; merge on rows
+              across three or more of its workers and on workers with no
+              live slot; the grouped GEMM on the
               reference's sweep, a ragged case, the wgmma body's edges
               (d_in past a 64-deep stage, d_out past a 128-column tile
               and a weight box wholly past d_out, two row tiles a block,
@@ -32,10 +37,12 @@ NVIDIA H100 (sm_90a) and the CUDA toolkit.  Phases, each timed:
               epilogues, 2-D and batched B, with the backward's launches;
 4. timing   — at the serving path's shapes: kernel, plain version, the
               cuSPARSE call (``torch.sparse.mm`` / ``sampled_addmm``, a
-              yardstick the port never calls) and the least time the card
-              could take, for the forward SpMMs and the backward's SDDMM and
-              dB (merge on the transpose plan); the device operations of one
-              merge call (its range kernel and fix-up, no fill or memset);
+              yardstick the port never calls), the least time the card
+              could take and the rate of B rows gathered, for the forward
+              SpMMs (row-split with its parts r, and r = 1 beside) and the
+              backward's SDDMM and dB (merge on the transpose plan); the
+              device operations of one merge call (its range kernel and
+              fix-up, no fill or memset);
               merge, row-split and ``torch.sparse.mm`` on a skewed
               power-law matrix (held to nothing); the grouped GEMM at the
               MoE path's shapes against ``torch.bmm`` and its bound;
@@ -48,8 +55,9 @@ NVIDIA H100 (sm_90a) and the CUDA toolkit.  Phases, each timed:
 6. training — sparse fine-tuning of layer 0's pruned FFN at full width
               (``make_sparse_train_step``, 5 SGD steps toward the dense
               FFN's output) for both methods: losses, step times, device
-              busy share, peak memory, plans built, launches per step, and
-              the kernel step's gradients against the plain step's;
+              busy share and the SDDMMs' device time, peak memory, plans
+              built, launches per step and their bodies, and the kernel
+              step's gradients against the plain step's;
 7. attention — the flash attention kernel against its plain version on
               the reference's sweep, its ragged case, the wgmma body's tile
               edges (ragged s at b = 2, s = 129, GQA g = 4 at dh 128) and
@@ -335,6 +343,12 @@ def host_ms(fn, reps=5) -> float:
     return statistics.median(times)
 
 
+def gather_tb_s(nnz, n, itemsize, ms) -> str:
+    """The rate at which a kernel gathers B rows (one row of n values a
+    nonzero, from L2 where B fits it), as printed beside the bound."""
+    return f"{nnz * n * itemsize / (ms * 1e-3) / 1e12:.2f} TB/s"
+
+
 def check_close(what, got, want, tol):
     """Raise unless ``got`` matches ``want`` (shape, dtype, values; NaN
     fails); returns (max |d|, worst |d| / (atol + rtol |want|))."""
@@ -373,16 +387,31 @@ def schedule_facts(structure, nnz_pad, g):
     return span, int((held == 0).sum())
 
 
-def check_body(what, before, body):
-    """Raise unless the merge calls since ``before`` (a copy of
-    ``merge_spmm.LAUNCHES_BY_BODY``) were one launch of ``body``."""
-    from repro_torch.kernels import merge_spmm
+def check_body(what, mod, before, body, calls=1):
+    """Raise unless the calls of kernel module ``mod`` (merge_spmm,
+    rowsplit_spmm or sddmm) since ``before`` (a copy of its
+    ``LAUNCHES_BY_BODY``) were ``calls`` launches of ``body``."""
     ran = {key: v - before.get(key, 0)
-           for key, v in merge_spmm.LAUNCHES_BY_BODY.items()
+           for key, v in mod.LAUNCHES_BY_BODY.items()
            if v != before.get(key, 0)}
-    if ran != {body: 1}:
-        raise AssertionError(f"{what}: the merge kernel ran {ran}, "
-                             f"expected {{{body!r}: 1}} (body_for)")
+    if ran != {body: calls}:
+        raise AssertionError(f"{what}: the kernel ran {ran}, expected "
+                             f"{{{body!r}: {calls}}} (_cuda.body_for)")
+
+
+def rowsplit_parts_call(fwd, vals, b, m, parts, kw):
+    """The row-split kernel on ``b`` (..., k, n) with its rows split in
+    ``parts`` (the op takes the rule's): as ``ops.rowsplit_execute`` folds
+    the batch and the residual for the launch."""
+    from repro_torch.kernels import rowsplit_spmm
+    lead, (k, n) = tuple(b.shape[:-2]), b.shape[-2:]
+    res = kw.get("residual")
+    out = rowsplit_spmm.rowsplit_spmm_cuda(
+        fwd, vals, b.reshape(-1, k, n), m, epilogue=kw.get("epilogue"),
+        bias=kw.get("bias"),
+        residual=None if res is None else res.reshape(-1, m, n).contiguous(),
+        out_dtype=b.dtype, parts=parts)
+    return out.reshape(lead + (m, n))
 
 
 def profile_merge_call(fn) -> None:
@@ -405,10 +434,12 @@ def profile_merge_call(fn) -> None:
 
 def parity_sddmm(matrices, dev) -> float:
     """The SDDMM kernel against its plain version on the card (through
-    ``ops.sddmm``, one counted launch a call); raises on a disagreement or
-    on a nonzero in a padded slot; returns the worst |error|."""
+    ``ops.sddmm``, one counted launch a call, its body held to
+    ``_cuda.body_for``, bit-identical to a second call); raises on a
+    disagreement or on a nonzero in a padded slot; returns the worst
+    |error|."""
     from repro_torch.core import PlanPolicy, build_plan
-    from repro_torch.kernels import ops, sddmm
+    from repro_torch.kernels import _cuda, ops, sddmm
     worst, seed = 0.0, 500
     for mname, a in matrices.items():
         fwd = build_plan(a, PlanPolicy(method="merge",
@@ -420,6 +451,7 @@ def parity_sddmm(matrices, dev) -> float:
             tol = SDDMM_TOL[str(dt).removeprefix("torch.")]
             max_abs = ratio = 0.0
             cases = 0
+            bodies = {}
             for n in (1, 32, 128, 160):
                 for lead in ((), (2,)):
                     seed += 1
@@ -428,27 +460,35 @@ def parity_sddmm(matrices, dev) -> float:
                                      device=dev).to(dt)
                     b = torch.randn(lead + (k, n), generator=g,
                                     device=dev).to(dt)
+                    what = f"sddmm {mname} {dt} n={n} batch={lead}"
                     before = sddmm.LAUNCHES
+                    by_body = dict(sddmm.LAUNCHES_BY_BODY)
                     got = ops.sddmm(*coords, dc, b, impl="cuda")
                     if sddmm.LAUNCHES - before != 1:
                         raise AssertionError(
-                            f"sddmm {mname}: counted "
+                            f"{what}: counted "
                             f"{sddmm.LAUNCHES - before} launches, expected 1")
+                    body = _cuda.body_for(dt, n)
+                    check_body(what, sddmm, by_body, body)
+                    bodies[body] = bodies.get(body, 0) + 1
+                    again = ops.sddmm(*coords, dc, b, impl="cuda")
                     want = ops.sddmm(*coords, dc, b, impl="torch")
                     torch.cuda.synchronize()
+                    if not torch.equal(got, again):
+                        raise AssertionError(f"{what}: two calls on the same "
+                                             "inputs differ")
                     if got[..., pad].any():
                         raise AssertionError(
                             f"sddmm {mname}: nonzero dvals in a padded slot")
-                    d, r = check_close(
-                        f"sddmm {mname} {dt} n={n} batch={lead}", got, want,
-                        tol)
+                    d, r = check_close(what, got, want, tol)
                     max_abs, ratio = max(max_abs, d), max(ratio, r)
                     cases += 1
             print(f"parity sddmm         {mname:13s} {a.shape} {str(dt):14s} "
                   f"cases {cases}: max_abs {max_abs:.3e} (tol rtol "
                   f"{tol['rtol']} atol {tol['atol']}; worst |d|/(atol+rtol"
                   f"|want|) {ratio:.3f}); padded slots "
-                  f"{int(pad.sum())}, all 0")
+                  f"{int(pad.sum())}, all 0; bodies {bodies}, each call "
+                  "bit-identical to a second one")
             worst = max(worst, max_abs)
     return worst
 
@@ -613,7 +653,8 @@ def timing_backward(llama_matrix, dev, card) -> dict:
             bound = max(t_b, t_o) * 1e3
             by = "bytes" if t_b >= t_o else "operations"
             print(f"timing {name:9s} {mat_name} {(m, k)} nnz {nnz} n {n}: "
-                  f"kernel {k_ms:.4f} ms ({k_ms / bound:.1f}x bound), plain "
+                  f"kernel {k_ms:.4f} ms ({k_ms / bound:.1f}x bound), B rows "
+                  f"gathered {gather_tb_s(nnz, n, 4, k_ms)}, plain "
                   f"{p_ms:.4f} ms, library {l_ms:.4f} ms, bound "
                   f"{bound:.6f} ms ({by}: {c['nbytes']} B, {flops} flop); "
                   f"{card}")
@@ -700,8 +741,10 @@ def timing_power_law(dev, card) -> dict:
     print(f"power law {m} x {m} (seed {seed}, d {d}, alpha {alpha}; made in "
           f"{made_s:.1f} s on the host): nnz {nnz}, rows {int(lengths.min())}"
           f"-{longest} long (mean {nnz / m:.2f}), n {n} f32: merge "
-          f"{out['merge']:.4f} ms, row-split {out['rowsplit']:.4f} ms (ELL "
-          f"{m} x {l}, {2 * m * l * 4 / 2**30:.2f} GiB of plan arrays), "
+          f"{out['merge']:.4f} ms ({gather_tb_s(nnz, n, 4, out['merge'])}), "
+          f"row-split {out['rowsplit']:.4f} ms "
+          f"({gather_tb_s(nnz, n, 4, out['rowsplit'])}; ELL {m} x {l}, "
+          f"{2 * m * l * 4 / 2**30:.2f} GiB of plan arrays), "
           f"torch.sparse.mm {out['library']:.4f} ms, bound "
           f"{out['bound_ms']:.6f} ms ({out['bound_by']}); {card}")
     del ell, fwd, sp, a, b, lib
@@ -717,7 +760,7 @@ def training(cfg, dev, card, reset_counts, read_counts) -> dict:
 
     from repro_torch.core import ExecutionConfig, PlanPolicy
     from repro_torch.engine import cache_stats, clear_cache
-    from repro_torch.kernels import merge_spmm
+    from repro_torch.kernels import merge_spmm, rowsplit_spmm, sddmm
     from repro_torch.models import model as M
     from repro_torch.models import sparse as S
     from repro_torch.runtime import steps
@@ -760,7 +803,9 @@ def training(cfg, dev, card, reset_counts, read_counts) -> dict:
             times.append((time.perf_counter() - t0) * 1e3)
             losses.append(loss.item())
         counts = read_counts()
-        merge_bodies = dict(merge_spmm.LAUNCHES_BY_BODY)
+        bodies = {name: dict(mod.LAUNCHES_BY_BODY) for name, mod in (
+            ("rowsplit_spmm", rowsplit_spmm), ("merge_spmm", merge_spmm),
+            ("sddmm", sddmm))}
         replans = cache_stats().misses - misses
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
         for name in totals:
@@ -779,21 +824,24 @@ def training(cfg, dev, card, reset_counts, read_counts) -> dict:
                 S.sparse_mlp_apply(sparse_p, x, None)
 
         fwd_ms = host_ms(forward)
-        busy = profile_device(lambda: step(vals, x, y))
+        busy, sddmm_ms = profile_device(lambda: step(vals, x, y),
+                                        part="sddmm_kernel")
         print(f"train method={method} ({kname}): losses "
               + ", ".join(f"{v:.6f}" for v in losses)
               + f"; step cold {cold:.3f} ms, warm {warm:.3f} ms (median of "
               f"{TRAIN_STEPS - 1}); forward only {fwd_ms:.3f} ms, "
               f"step/forward {warm / fwd_ms:.2f}x; device busy "
-              f"{busy:.3f} ms of a warm step (idle share "
-              f"{1 - busy / warm:.3f}); device memory {held:.3f} GiB held "
-              f"before the steps (dense and pruned FFN, plans, x, y), "
+              f"{busy:.3f} ms of a warm step, the 3 SDDMMs {sddmm_ms:.3f} "
+              f"(idle share {1 - busy / warm:.3f}); device memory "
+              f"{held:.3f} GiB held before the steps (dense and pruned "
+              f"FFN, plans, x, y), "
               f"{peak:.3f} GiB peak during them; "
               f"plans built during the steps {replans}; launches per step "
-              f"{per_step}, merge bodies {merge_bodies}; {card}")
-        if merge_bodies != {"f32x4": counts["merge_spmm"]}:
-            raise AssertionError(f"train {method}: merge ran bodies "
-                                 f"{merge_bodies}, expected f32x4 only")
+              f"{per_step}, bodies {bodies}; {card}")
+        for name, ran in bodies.items():
+            if ran != ({"f32x4": counts[name]} if counts[name] else {}):
+                raise AssertionError(f"train {method}: {name} ran bodies "
+                                     f"{ran}, expected f32x4 only")
         if per_step != want:
             raise AssertionError(f"train {method}: launches per step "
                                  f"{per_step}, expected {want}")
@@ -1438,6 +1486,13 @@ def attention(dev, card, reset_counts, read_counts) -> dict:
 
 # What ptxas reports, by source: (kernel name as mangled, label).
 PTXAS_KERNELS = {
+    "rowsplit_spmm.cu": [("rowsplit_kernelILi1EfffEE", "rowsplit f32x4"),
+                         ("rowsplit_kernelILi2E13__nv_bfloat16S1_S1_EE",
+                          "rowsplit bf16x8"),
+                         ("rowsplit_kernelILi0EfffEE", "rowsplit scalar")],
+    "sddmm.cu": [("sddmm_kernelILi1EffEE", "sddmm f32x4"),
+                 ("sddmm_kernelILi2E13__nv_bfloat16S1_EE", "sddmm bf16x8"),
+                 ("sddmm_kernelILi0EffEE", "sddmm scalar")],
     "merge_spmm.cu": [("merge_range_kernelILi1EfffEE", "merge f32x4"),
                       ("merge_range_kernelILi2E13__nv_bfloat16S1_S1_EE",
                        "merge bf16x8"),
@@ -1451,13 +1506,19 @@ PTXAS_KERNELS = {
 }
 
 
+# Bodies that must not spill: the grouped GEMM's wgmma body and the f32
+# vector bodies of row-split and the SDDMM (the serving and training
+# paths').
+NO_SPILLS = ("moe_gemm wgmma", "rowsplit f32x4", "sddmm f32x4")
+
+
 def print_ptxas(log: str) -> None:
-    """What ptxas reported for the merge kernel's bodies and fix-up, the
-    flash attention wgmma body (one instance a head dim) and the grouped
-    GEMM's bodies: registers, spills,
-    static shared memory and any performance note; fails if the grouped
-    GEMM's wgmma body spills.  A library built by an earlier run of the
-    same sources is loaded as it is, and ptxas has nothing to report."""
+    """What ptxas reported for the row-split, SDDMM and merge kernels'
+    bodies, merge's fix-up, the flash attention wgmma body (one instance a
+    head dim) and the grouped GEMM's bodies: registers, spills, static
+    shared memory and any performance note; fails if a body of NO_SPILLS
+    spills.  A library built by an earlier run of the same sources is
+    loaded as it is, and ptxas has nothing to report."""
     lines = log.splitlines()
     for src, kernels in PTXAS_KERNELS.items():
         if f"[nvcc {src}]" not in log:
@@ -1475,9 +1536,8 @@ def print_ptxas(log: str) -> None:
                     print(f"ptxas {label}: {spills}; "
                           f"{lines[i + 2].replace('ptxas info    : ', '')}"
                           .strip())
-                    if mangled == "moe_gemm_wgmma_kernel" and \
-                            not spills.startswith(
-                                "0 bytes stack frame, 0 bytes spill stores"):
+                    if label in NO_SPILLS and not spills.startswith(
+                            "0 bytes stack frame, 0 bytes spill stores"):
                         raise AssertionError(f"ptxas: {label} spills")
                     found = True
                 elif mangled in line and "(C7" in line:
@@ -1518,9 +1578,9 @@ def main() -> int:
     def reset_counts():
         for mod in by_kernel.values():
             mod.LAUNCHES = 0
-        merge_spmm.LAUNCHES_BY_BODY.clear()
-        flash_attention.LAUNCHES_BY_BODY.clear()
-        moe_gemm.LAUNCHES_BY_BODY.clear()
+        for mod in (merge_spmm, rowsplit_spmm, sddmm, flash_attention,
+                    moe_gemm):
+            mod.LAUNCHES_BY_BODY.clear()
 
     def read_counts() -> dict:
         return {name: mod.LAUNCHES for name, mod in by_kernel.items()}
@@ -1571,15 +1631,18 @@ def main() -> int:
            "bias+gelu": Epilogue(bias=True, activation="gelu"),
            "relu+scale+residual": Epilogue(activation="relu", scale=0.5,
                                            residual=True)}
+    sms = _cuda.sm_count(dev)
     for kname, kspec in KERNELS.items():
         method = kspec["method"]
         if method is None:                      # the SDDMM, below
             continue
         fn = execs[method]
-        # Merge also on the 0-nnz pattern (every row is epilogue(0), which
-        # its plain version computes) and on its schedule's edges.
-        mats = dict(matrices, **zero_nnz, **merge_edges) \
-            if method == "merge" else matrices
+        mod = counters[method]
+        # Both SpMMs also on the 0-nnz pattern (every row is epilogue(0),
+        # which the plain version computes) and on merge's schedule edges
+        # (row-split: rows of 69-129 groups of 32, split in parts, and 1084
+        # empty rows).
+        mats = dict(matrices, **zero_nnz, **merge_edges)
         spans = idles = 0
         for mname, a in mats.items():
             plan = build_plan(a, PlanPolicy(method=method))
@@ -1593,7 +1656,7 @@ def main() -> int:
                 tol = TOL[str(dt).removeprefix("torch.")]
                 max_abs = max_rel = ratio = 0.0
                 cases = 0
-                bodies = {}
+                bodies, rules = {}, set()
                 for n in (1, 32, 128, 160):
                     for lead in ((), (2,)):
                         rng_seed += 1
@@ -1603,6 +1666,12 @@ def main() -> int:
                         bias = torch.randn(m, generator=g, device=dev)
                         res = torch.randn(lead + (m, n), generator=g,
                                           device=dev)
+                        body = _cuda.body_for(dt, n)
+                        rule = rowsplit_spmm.row_parts(
+                            m, n, plan.fwd["cols"].shape[1],
+                            math.prod(lead), sms) \
+                            if method == "rowsplit" else None
+                        rules.add(rule)
                         for ep in eps.values():
                             kw = dict(m=m, epilogue=ep)
                             if ep is not None and ep.bias:
@@ -1610,56 +1679,68 @@ def main() -> int:
                             if ep is not None and ep.residual:
                                 kw["residual"] = res
                             vals = a.vals.to(dt)
-                            mod = counters[method]
+                            what = (f"{kname} {mname} {dt} n={n} "
+                                    f"batch={lead} epilogue={ep}")
                             before = mod.LAUNCHES
-                            by_body = dict(merge_spmm.LAUNCHES_BY_BODY)
+                            by_body = dict(mod.LAUNCHES_BY_BODY)
                             got = fn(plan.fwd, vals, b, impl="cuda", **kw)
                             if mod.LAUNCHES - before != 1:
                                 raise AssertionError(
-                                    f"{kname} {mname}: counted "
+                                    f"{what}: counted "
                                     f"{mod.LAUNCHES - before} launches, "
                                     "expected 1")
-                            if method == "merge":
-                                body = merge_spmm.body_for(dt, n)
-                                check_body(f"{kname} {mname} n={n}",
-                                           by_body, body)
-                                bodies[body] = bodies.get(body, 0) + 1
-                                again = fn(plan.fwd, vals, b, impl="cuda",
-                                           **kw)
-                                if not torch.equal(got, again):
-                                    raise AssertionError(
-                                        f"{kname} {mname} {dt} n={n} "
-                                        f"batch={lead} epilogue={ep}: two "
-                                        "calls on the same inputs differ")
+                            check_body(what, mod, by_body, body)
+                            bodies[body] = bodies.get(body, 0) + 1
+                            runs = {f"r={rule}" if rule else "": (
+                                got, fn(plan.fwd, vals, b, impl="cuda",
+                                        **kw))}
+                            # Row-split also with its rows split in each
+                            # other number of parts it takes.
+                            for parts in (1, 2, 8) if rule else ():
+                                if parts == rule:
+                                    continue
+                                by_body = dict(mod.LAUNCHES_BY_BODY)
+                                runs[f"r={parts}"] = tuple(
+                                    rowsplit_parts_call(plan.fwd, vals, b, m,
+                                                        parts, kw)
+                                    for _ in range(2))
+                                check_body(f"{what} r={parts}", mod,
+                                           by_body, body, calls=2)
                             want = fn(plan.fwd, vals, b, impl="torch", **kw)
                             torch.cuda.synchronize()
-                            if got.shape != want.shape or \
-                                    got.dtype != want.dtype:
-                                raise AssertionError(
-                                    f"{kname} {mname}: {got.shape} "
-                                    f"{got.dtype} vs {want.shape} "
-                                    f"{want.dtype}")
-                            if not torch.allclose(got.float(), want.float(),
-                                                  **tol):   # NaN fails too
-                                raise AssertionError(
-                                    f"{kname} disagrees with its plain "
-                                    f"version on {mname} {dt} n={n} "
-                                    f"batch={lead} epilogue={ep}")
-                            d = (got.float() - want.float()).abs()
-                            w = want.float().abs()
-                            if d.numel():
-                                max_abs = max(max_abs, d.max().item())
-                                max_rel = max(max_rel, (d / w.clamp(
-                                    min=tol["atol"])).max().item())
-                                ratio = max(ratio, (d / (
-                                    tol["atol"] + tol["rtol"] * w)
-                                ).max().item())
-                            cases += 1
-                extra = ""
+                            for tag, (x, again) in runs.items():
+                                if not torch.equal(x, again):
+                                    raise AssertionError(
+                                        f"{what} {tag}: two calls on the "
+                                        "same inputs differ")
+                                if x.shape != want.shape or \
+                                        x.dtype != want.dtype:
+                                    raise AssertionError(
+                                        f"{what} {tag}: {x.shape} {x.dtype}"
+                                        f" vs {want.shape} {want.dtype}")
+                                if not torch.allclose(x.float(),
+                                                      want.float(), **tol):
+                                    raise AssertionError(
+                                        f"{kname} disagrees with its plain "
+                                        f"version on {what} {tag}")
+                                d = (x.float() - want.float()).abs()
+                                w = want.float().abs()
+                                if d.numel():
+                                    max_abs = max(max_abs, d.max().item())
+                                    max_rel = max(max_rel, (d / w.clamp(
+                                        min=tol["atol"])).max().item())
+                                    ratio = max(ratio, (d / (
+                                        tol["atol"] + tol["rtol"] * w)
+                                    ).max().item())
+                                cases += 1
+                extra = f"; bodies {bodies}, each call bit-identical to a " \
+                    "second one"
                 if method == "merge":
-                    extra = (f"; bodies {bodies}, each call bit-identical "
-                             f"to a second one; a row spans up to {span} "
-                             f"workers, {idle} workers hold no live slot")
+                    extra += (f"; a row spans up to {span} workers, {idle} "
+                              "workers hold no live slot")
+                else:
+                    extra += (f"; parts r by the rule {sorted(rules)}, and "
+                              "each other r of 1, 2, 8")
                 print(f"parity {kname:13s} {mname:13s} {a.shape} "
                       f"{str(dt):14s} cases {cases}: max_abs {max_abs:.3e} "
                       f"max_rel {max_rel:.3e} (tol rtol {tol['rtol']} "
@@ -1670,7 +1751,8 @@ def main() -> int:
             raise AssertionError(f"merge parity missed its schedule's edges: "
                                  f"a row across {spans} workers (want >= 3), "
                                  f"{idles} workers without a live slot")
-    worst["sddmm"] = parity_sddmm(dict(matrices, **zero_nnz), dev)
+    worst["sddmm"] = parity_sddmm(dict(matrices, **zero_nnz, **merge_edges),
+                                  dev)
     worst["moe_gemm"] = parity_moe(dev)
     done("parity", t0)
 
@@ -1739,9 +1821,20 @@ def main() -> int:
             p_ms = time_ms(plain, reps=5, inner=3)
             if method == "merge" and mat_name == "w1":
                 profile_merge_call(kern)
+            extra = ""
+            if method == "rowsplit":
+                r = rowsplit_spmm.row_parts(m, n, fwd["cols"].shape[1], 1,
+                                            _cuda.sm_count(dev))
+                extra = f"r {r}"
+                if r != 1:
+                    r1_ms = time_ms(lambda: rowsplit_spmm.rowsplit_spmm_cuda(
+                        fwd, a.vals, b3, m, parts=1))
+                    extra += f" (r 1: {r1_ms:.4f} ms)"
+                extra += ", "
             print(f"timing {kname:13s} {mat_name} {(m, k)} nnz {nnz} n {n}: "
-                  f"kernel {k_ms:.4f} ms ({k_ms / bound:.1f}x bound), plain "
-                  f"{p_ms:.4f} ms, cuSPARSE {lib_ms:.4f} ms, bound "
+                  f"kernel {k_ms:.4f} ms ({k_ms / bound:.1f}x bound), "
+                  f"{extra}B rows gathered {gather_tb_s(nnz, n, 4, k_ms)}, "
+                  f"plain {p_ms:.4f} ms, cuSPARSE {lib_ms:.4f} ms, bound "
                   f"{bound:.6f} ms; plan arrays read {plan_bytes} B, "
                   f"{plan_bytes - index_bytes} B beyond the CSR's index "
                   f"arrays; {card}")
@@ -1806,11 +1899,10 @@ def main() -> int:
             raise AssertionError(
                 f"method={method}: expected {want} launches of {kname} "
                 f"alone, got {counts} (plans {rep.methods})")
-        if kname == "merge_spmm" and \
-                merge_spmm.LAUNCHES_BY_BODY != {"f32x4": want}:
-            raise AssertionError(f"serving merge ran bodies "
-                                 f"{merge_spmm.LAUNCHES_BY_BODY}, expected "
-                                 f"f32x4 (B (d_in, 128) f32)")
+        if counters[used].LAUNCHES_BY_BODY != {"f32x4": want}:
+            raise AssertionError(f"serving {used} ran bodies "
+                                 f"{counters[used].LAUNCHES_BY_BODY}, "
+                                 "expected f32x4 (B (d_in, 128) f32)")
         lg = rep.logits
         if lg.shape != (SERVE_BATCH, SERVE_PROMPT, cfg.vocab_size) or \
                 not torch.isfinite(lg).all():

@@ -38,20 +38,12 @@
 // group whose live slots all lie in the current row (most groups, where
 // rows are long) skips the row checks; a group where a row ends goes slot
 // by slot.
-// Three bodies (enum MergeBody): f32x4 -- a lane reads 4 consecutive f32
-// columns with one 16-byte load, a warp covers 128; bf16x8 -- a lane
-// reads 8 bf16 columns, two half-warps take two slots at once and their
-// partials are merged by one shuffle when a row ends; scalar -- 4-byte
-// loads of columns lane + 32 q for the n and alignments the vector
-// bodies do not take (n = 1, for example).
-#include <type_traits>
-
+// Three bodies (enum SpmmBody and Layout/BRaw in spmm_common.cuh): f32x4,
+// bf16x8 -- two half-warps take two slots at once and their partials are
+// merged by one shuffle when a row ends -- and scalar.
 #include "spmm_common.cuh"
 
 namespace repro {
-
-// Body codes (must match kernels/merge_spmm.py BODIES).
-enum MergeBody : int { kMergeScalar = 0, kMergeF32x4 = 1, kMergeBf16x8 = 2 };
 
 // B-row loads each lane keeps in flight before its FMAs, and the blocks
 // of the range kernel an SM holds: 4 x 256 threads cap it at 64
@@ -60,70 +52,6 @@ enum MergeBody : int { kMergeScalar = 0, kMergeF32x4 = 1, kMergeBf16x8 = 2 };
 // was the faster at every shape timed.
 constexpr int kUnroll = 4;
 constexpr int kRangeBlocksPerSm = 4;
-
-// The columns a lane owns in its 128-column slice: kPer values, kStride
-// apart, starting at first_col; kSlots slots consumed at once by kSlots
-// groups of 32 / kSlots lanes.
-template <int kBody>
-struct Layout {
-  static constexpr int kPer = kBody == kMergeBf16x8 ? 8 : 4;
-  static constexpr int kStride = kBody == kMergeScalar ? kWarp : 1;
-  static constexpr int kSlots = kBody == kMergeBf16x8 ? 2 : 1;
-  static constexpr int kLanes = kWarp / kSlots;
-  // A vector body's kPer columns are all inside n or all past it (n %
-  // kPer == 0).
-  __device__ static int first_col(int slice, int lane) {
-    return slice * kSliceCols +
-           (kStride == 1 ? (lane % kLanes) * kPer : lane);
-  }
-};
-
-// One lane's share of a B row, as loaded: raw until its FMAs.
-template <int kBody, typename TB, bool kVec = kBody != kMergeScalar>
-struct BRaw {
-  TB x[4];
-  __device__ void load(const TB* row, int c0, int n) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int c = c0 + q * kWarp;
-      x[q] = c < n ? row[c] : from_f32<TB>(0.0f);
-    }
-  }
-  __device__ void clear() {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) x[q] = from_f32<TB>(0.0f);
-  }
-  __device__ void accumulate(float v, float* acc) const {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[q] = fmaf(v, to_f32(x[q]), acc[q]);
-  }
-};
-
-template <int kBody, typename TB>
-struct BRaw<kBody, TB, true> {
-  uint4 x;
-  __device__ void load(const TB* row, int c0, int n) {
-    x = c0 < n ? __ldg(reinterpret_cast<const uint4*>(row + c0))
-               : make_uint4(0, 0, 0, 0);
-  }
-  __device__ void clear() { x = make_uint4(0, 0, 0, 0); }
-  __device__ void accumulate(float v, float* acc) const {
-    const uint32_t w[4] = {x.x, x.y, x.z, x.w};
-    if constexpr (kBody == kMergeF32x4) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[q] = fmaf(v, __uint_as_float(w[q]),
-                                               acc[q]);
-    } else {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        // bf16 -> f32 is exact: the 16 bits become the high half.
-        acc[2 * q] = fmaf(v, __uint_as_float(w[q] << 16), acc[2 * q]);
-        acc[2 * q + 1] =
-            fmaf(v, __uint_as_float(w[q] & 0xffff0000u), acc[2 * q + 1]);
-      }
-    }
-  }
-};
 
 // The structure and shapes both launches read.
 struct MergeArgs {
@@ -167,36 +95,12 @@ __device__ __forceinline__ Split split_at(const MergeArgs& a, int j) {
   return {a.m - 1, true};
 }
 
-// Row `row` of C from a lane's float32 sums: the epilogue, one cast, one
-// store of kPer values (16 or 32 bytes a lane in the vector bodies).
-template <int kBody, typename TO>
-__device__ __forceinline__ void store_row(TO* out, const float* acc,
-                                          const Epilogue& ep, int64_t row,
-                                          int64_t obase, int c0, int n) {
-  using L = Layout<kBody>;
-  float y[L::kPer];
-  if constexpr (kBody == kMergeScalar) {
-#pragma unroll
-    for (int q = 0; q < L::kPer; ++q) {
-      const int c = c0 + q * kWarp;
-      if (c < n) {
-        out[obase + c] = from_f32<TO>(apply_epilogue(acc[q], ep, row,
-                                                     obase + c));
-      }
-    }
-  } else {
-    if (c0 >= n) return;
-    apply_epilogue_vec<L::kPer>(acc, y, ep, row, obase + c0);
-    store_vec<TO, L::kPer>(out + obase + c0, y);
-  }
-}
-
 // A lane's float32 partial of a split row into its carry row.
 template <int kBody>
 __device__ __forceinline__ void store_carry(float* dst, const float* acc,
                                             int c0, int n) {
   using L = Layout<kBody>;
-  if constexpr (kBody == kMergeScalar) {
+  if constexpr (kBody == kBodyScalar) {
 #pragma unroll
     for (int q = 0; q < L::kPer; ++q) {
       if (c0 + q * kWarp < n) dst[c0 + q * kWarp] = acc[q];
@@ -376,7 +280,7 @@ template <int kBody, typename TO>
 __global__ void __launch_bounds__(kBlock)
 merge_fixup_kernel(MergeArgs a, Epilogue ep, const float* __restrict__ carry,
                    TO* __restrict__ out) {
-  constexpr int kFix = kBody == kMergeScalar ? kMergeScalar : kMergeF32x4;
+  constexpr int kFix = kBody == kBodyScalar ? kBodyScalar : kBodyF32x4;
   using L = Layout<kFix>;
   const int64_t warp =
       static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / kWarp;
@@ -437,7 +341,7 @@ merge_fixup_kernel(MergeArgs a, Epilogue ep, const float* __restrict__ carry,
       // when S_w is.
       if (half == 0 ? w - 1 < j : w > jb) continue;
       const float* src = lo_row + half * n;
-      if constexpr (kFix == kMergeScalar) {
+      if constexpr (kFix == kBodyScalar) {
 #pragma unroll
         for (int q = 0; q < L::kPer; ++q) {
           if (c0 + q * kWarp < n) acc[q] += src[c0 + q * kWarp];
@@ -453,10 +357,6 @@ merge_fixup_kernel(MergeArgs a, Epilogue ep, const float* __restrict__ carry,
   }
   store_row<kFix>(out, acc, ep, row,
                   (static_cast<int64_t>(bb) * a.m + row) * n, c0, n);
-}
-
-inline bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
 }  // namespace repro
@@ -505,15 +405,13 @@ extern "C" int repro_merge_spmm(
   }
   const bool vec_ok = aligned16(b) && aligned16(out) && aligned16(carry) &&
                       (residual == nullptr || aligned16(residual));
-  int code = kMergeScalar;
-  if (vec_ok && b_dtype == kF32 && n % 4 == 0) code = kMergeF32x4;
-  if (vec_ok && b_dtype == kBF16 && n % 8 == 0) code = kMergeBf16x8;
+  const int code = pick_body(b_dtype, n, vec_ok);
   *body = code;
   const Epilogue ep{static_cast<const float*>(bias),
                     static_cast<const float*>(residual), act, has_scale,
                     scale};
   auto s = static_cast<cudaStream_t>(stream);
-  auto launch = [&](auto body_tag) {
+  with_body(code, [&](auto body_tag) {
     constexpr int kBody = decltype(body_tag)::value;
     with_dtype(vals_dtype, [&](auto tv) {
       using TV = decltype(tv);
@@ -521,13 +419,7 @@ extern "C" int repro_merge_spmm(
         using TB = decltype(tb);
         with_dtype(out_dtype, [&](auto to) {
           using TO = decltype(to);
-          if constexpr (kBody == kMergeF32x4 &&
-                        !std::is_same_v<TB, float>) {
-            return;  // not picked: f32x4 reads float32 b
-          } else if constexpr (kBody == kMergeBf16x8 &&
-                               !std::is_same_v<TB, __nv_bfloat16>) {
-            return;  // not picked: bf16x8 reads bfloat16 b
-          } else {
+          if constexpr (body_reads<kBody, TB>()) {
             merge_range_kernel<kBody, TV, TB, TO>
                 <<<static_cast<unsigned>(blocks), kBlock, 0, s>>>(
                     a, static_cast<const TV*>(vals),
@@ -541,13 +433,6 @@ extern "C" int repro_merge_spmm(
         });
       });
     });
-  };
-  if (code == kMergeF32x4) {
-    launch(std::integral_constant<int, kMergeF32x4>{});
-  } else if (code == kMergeBf16x8) {
-    launch(std::integral_constant<int, kMergeBf16x8>{});
-  } else {
-    launch(std::integral_constant<int, kMergeScalar>{});
-  }
+  });
   return static_cast<int>(cudaGetLastError());
 }

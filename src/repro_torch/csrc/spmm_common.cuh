@@ -1,12 +1,16 @@
-// Shared pieces of the two SpMM kernels: dtype conversion, the fused
+// Shared pieces of the SpMM and SDDMM kernels: dtype conversion, the fused
 // epilogue y = act(C + bias) * scale + residual (applied in float32, cast
-// once to the output type), and the C-ABI dtype/activation codes that the
-// ctypes wrappers in repro_torch/kernels/_cuda.py pass in.
+// once to the output type), the C-ABI dtype/activation/body codes that the
+// ctypes wrappers in repro_torch/kernels/_cuda.py pass in or read back, and
+// the three bodies that read a 128-column slice of a row-major row (B of
+// the SpMMs, dC and B of the SDDMM).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace repro {
 
@@ -14,6 +18,13 @@ namespace repro {
 enum Dtype : int { kF32 = 0, kBF16 = 1 };
 // Activation codes (must match kernels/_cuda.py ACT_CODES).
 enum Act : int { kNone = 0, kRelu = 1, kGelu = 2 };
+// Body codes (must match kernels/_cuda.py BODIES): how a warp reads a
+// 128-column slice of a row.  f32x4 -- a lane reads 4 consecutive f32
+// columns with one 16-byte load, a warp covers 128; bf16x8 -- a lane reads
+// 8 bf16 columns, so a half-warp covers 128 and the two half-warps take
+// two rows at once; scalar -- 4-byte loads of columns lane + 32 q, for the
+// n and alignments the vector bodies do not take (n = 1, for example).
+enum SpmmBody : int { kBodyScalar = 0, kBodyF32x4 = 1, kBodyBf16x8 = 2 };
 
 constexpr int kWarp = 32;
 // Columns of C one lane owns: lane l of a warp handles columns
@@ -125,6 +136,125 @@ __device__ __forceinline__ void store_vec(TO* dst, const float* y) {
   }
 }
 
+// The columns a lane owns in its 128-column slice: kPer values, kStride
+// apart, starting at first_col; kSlots rows consumed at once by kSlots
+// groups of 32 / kSlots lanes.
+template <int kBody>
+struct Layout {
+  static constexpr int kPer = kBody == kBodyBf16x8 ? 8 : 4;
+  static constexpr int kStride = kBody == kBodyScalar ? kWarp : 1;
+  static constexpr int kSlots = kBody == kBodyBf16x8 ? 2 : 1;
+  static constexpr int kLanes = kWarp / kSlots;
+  // A vector body's kPer columns are all inside n or all past it (n %
+  // kPer == 0).
+  __device__ static int first_col(int slice, int lane) {
+    return slice * kSliceCols +
+           (kStride == 1 ? (lane % kLanes) * kPer : lane);
+  }
+};
+
+// One lane's share of a row, as loaded: raw until its FMAs.
+template <int kBody, typename TB, bool kVec = kBody != kBodyScalar>
+struct BRaw {
+  TB x[4];
+  __device__ void load(const TB* row, int c0, int n) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int c = c0 + q * kWarp;
+      x[q] = c < n ? row[c] : from_f32<TB>(0.0f);
+    }
+  }
+  __device__ void clear() {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) x[q] = from_f32<TB>(0.0f);
+  }
+  __device__ void accumulate(float v, float* acc) const {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[q] = fmaf(v, to_f32(x[q]), acc[q]);
+  }
+  __device__ void unpack(float* f) const {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) f[q] = to_f32(x[q]);
+  }
+};
+
+template <int kBody, typename TB>
+struct BRaw<kBody, TB, true> {
+  uint4 x;
+  __device__ void load(const TB* row, int c0, int n) {
+    x = c0 < n ? __ldg(reinterpret_cast<const uint4*>(row + c0))
+               : make_uint4(0, 0, 0, 0);
+  }
+  __device__ void clear() { x = make_uint4(0, 0, 0, 0); }
+  __device__ void accumulate(float v, float* acc) const {
+    const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+    if constexpr (kBody == kBodyF32x4) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[q] = fmaf(v, __uint_as_float(w[q]),
+                                               acc[q]);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        // bf16 -> f32 is exact: the 16 bits become the high half.
+        acc[2 * q] = fmaf(v, __uint_as_float(w[q] << 16), acc[2 * q]);
+        acc[2 * q + 1] =
+            fmaf(v, __uint_as_float(w[q] & 0xffff0000u), acc[2 * q + 1]);
+      }
+    }
+  }
+  __device__ void unpack(float* f) const {
+    const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+    if constexpr (kBody == kBodyF32x4) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) f[q] = __uint_as_float(w[q]);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        f[2 * q] = __uint_as_float(w[q] << 16);
+        f[2 * q + 1] = __uint_as_float(w[q] & 0xffff0000u);
+      }
+    }
+  }
+};
+
+// Row `row` of C from a lane's float32 sums: the epilogue, one cast, one
+// store of kPer values (16 or 32 bytes a lane in the vector bodies).
+template <int kBody, typename TO>
+__device__ __forceinline__ void store_row(TO* out, const float* acc,
+                                          const Epilogue& ep, int64_t row,
+                                          int64_t obase, int c0, int n) {
+  using L = Layout<kBody>;
+  float y[L::kPer];
+  if constexpr (kBody == kBodyScalar) {
+#pragma unroll
+    for (int q = 0; q < L::kPer; ++q) {
+      const int c = c0 + q * kWarp;
+      if (c < n) {
+        out[obase + c] = from_f32<TO>(apply_epilogue(acc[q], ep, row,
+                                                     obase + c));
+      }
+    }
+  } else {
+    if (c0 >= n) return;
+    apply_epilogue_vec<L::kPer>(acc, y, ep, row, obase + c0);
+    store_vec<TO, L::kPer>(out + obase + c0, y);
+  }
+}
+
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+// The body a launch runs: f32x4 for float32 rows with n % 4 == 0, bf16x8
+// for bfloat16 rows with n % 8 == 0, both only when every row-major
+// operand it reads or writes with vector accesses is 16-byte aligned
+// (vec_ok); scalar otherwise (kernels/_cuda.py body_for).
+inline int pick_body(int dtype, int n, bool vec_ok) {
+  if (vec_ok && dtype == kF32 && n % 4 == 0) return kBodyF32x4;
+  if (vec_ok && dtype == kBF16 && n % 8 == 0) return kBodyBf16x8;
+  return kBodyScalar;
+}
+
 inline bool known_dtype(int code) { return code == kF32 || code == kBF16; }
 
 // Calls f(T{}) with T the C++ type of a dtype code (checked beforehand
@@ -136,6 +266,30 @@ void with_dtype(int code, F&& f) {
   } else {
     f(float{});
   }
+}
+
+// Calls f(std::integral_constant<int, kBody>{}) for a body code.
+template <typename F>
+void with_body(int code, F&& f) {
+  if (code == kBodyF32x4) {
+    f(std::integral_constant<int, kBodyF32x4>{});
+  } else if (code == kBodyBf16x8) {
+    f(std::integral_constant<int, kBodyBf16x8>{});
+  } else {
+    f(std::integral_constant<int, kBodyScalar>{});
+  }
+}
+
+// Whether a body reads rows of element type T (f32x4 float32, bf16x8
+// bfloat16; scalar either): the instances a launch never picks are not
+// compiled.
+template <int kBody, typename T>
+constexpr bool body_reads() {
+  if constexpr (kBody == kBodyF32x4) return std::is_same_v<T, float>;
+  if constexpr (kBody == kBodyBf16x8) {
+    return std::is_same_v<T, __nv_bfloat16>;
+  }
+  return true;
 }
 
 }  // namespace repro

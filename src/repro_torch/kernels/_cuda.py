@@ -32,14 +32,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # Codes shared with csrc/spmm_common.cuh.
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 ACT_CODES = {"none": 0, "relu": 1, "gelu": 2}
+# The bodies of the merge, row-split and SDDMM kernels, by the code their C
+# entries report (csrc/spmm_common.cuh, enum SpmmBody).
+BODIES = ("scalar", "f32x4", "bf16x8")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # cols, slot_nz, vals, vals_dtype, b, b_dtype, bias, residual, act,
-    # has_scale, scale, out, out_dtype, batch, m, l, nnz_pad, k, n, device,
-    # stream
+    # has_scale, scale, out, out_dtype, batch, m, l, nnz_pad, k, n, parts,
+    # device, stream, body (out)
     "repro_rowsplit_spmm": (_P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _F, _P,
-                            _I, _I, _I, _I, _I, _I, _I, _I, _P),
+                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+                            ctypes.POINTER(_I)),
     # cols, lrow, slot_nz, tile, first, vals, vals_dtype, b, b_dtype, bias,
     # residual, act, has_scale, scale, out, out_dtype, carry, batch,
     # n_chunks, t, tm, nnz_pad, m, k, n, g, device, stream, body (out)
@@ -47,9 +51,9 @@ _SIGNATURES = {
                          _F, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _I, _P, ctypes.POINTER(_I)),
     # rows, cols, valid, dc, dc_dtype, b, b_dtype, out, batch, nnz_pad, m,
-    # k, n, device, stream
+    # k, n, g, device, stream, body (out)
     "repro_sddmm": (_P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I,
-                    _P),
+                    _I, _P, ctypes.POINTER(_I)),
     # x, w, dtype, block_expert, out, tokens, d_in, d_out, n_experts, tt,
     # device, stream, body (out)
     "repro_moe_gemm": (_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P,
@@ -142,6 +146,33 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = lib
     return _lib
+
+
+def body_for(dtype: torch.dtype, n: int, *, aligned: bool = True) -> str:
+    """The body a merge, row-split or SDDMM launch runs for rows of
+    ``dtype`` and ``n`` columns (``aligned``: every row-major operand the
+    kernel reads or writes with vector accesses starts on a 16-byte
+    boundary; for the SDDMM also dc's dtype is b's): ``f32x4`` for float32
+    with n % 4 == 0, ``bf16x8`` for bfloat16 with n % 8 == 0, ``scalar``
+    otherwise (``pick_body`` in ``csrc/spmm_common.cuh``)."""
+    if dtype not in DTYPE_CODES:
+        raise TypeError(f"the kernel takes float32 or bfloat16, not {dtype}")
+    if aligned and dtype == torch.float32 and n % 4 == 0:
+        return "f32x4"
+    if aligned and dtype == torch.bfloat16 and n % 8 == 0:
+        return "bf16x8"
+    return "scalar"
+
+
+def count_launch(by_body: dict, code: int) -> None:
+    """Add one launch of the body a C entry reported to ``by_body``."""
+    name = BODIES[code]
+    by_body[name] = by_body.get(name, 0) + 1
+
+
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check(rc: int, what: str) -> None:

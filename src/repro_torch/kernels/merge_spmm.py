@@ -14,9 +14,9 @@
   go to a small float32 carry buffer that a second launch, the fix-up,
   sums in worker order.  No atomics, no zeroed scratch, the same bits on
   every call.  Three bodies by B's dtype, n and alignment
-  (:func:`body_for`).  Its plain PyTorch version is
-  ``repro_torch.kernels.ref.merge_execute_ref``; ``ref.merge_schedule_ref``
-  replays its schedule in tensor ops.
+  (``_cuda.body_for``, shared with row-split and the SDDMM).  Its plain
+  PyTorch version is ``repro_torch.kernels.ref.merge_execute_ref``;
+  ``ref.merge_schedule_ref`` replays its schedule in tensor ops.
 """
 from __future__ import annotations
 
@@ -31,9 +31,6 @@ from . import _cuda
 TM = 8
 DEFAULT_T = 16
 
-# The kernel's bodies, by the code its C entry reports
-# (csrc/merge_spmm.cu, enum MergeBody).
-BODIES = ("scalar", "f32x4", "bf16x8")
 # Nonzero slots a worker takes: 64 chunks at the default t, so a pruned
 # Llama-3.2-1B FFN matrix (4.2 M nonzeros) gives ~4.1 k warps, about one
 # wave of 4 blocks of 8 warps on each of 132 SMs, and a carry buffer of
@@ -45,20 +42,6 @@ SLOTS_PER_WORKER = 1024
 # kernel and its fix-up), and the same launches by the body that ran.
 LAUNCHES = 0
 LAUNCHES_BY_BODY: dict[str, int] = {}
-
-
-def body_for(dtype: torch.dtype, n: int, *, aligned: bool = True) -> str:
-    """The body the kernel runs for B of ``dtype`` and ``n`` columns
-    (``aligned``: b, out, residual and the carry buffer start on 16-byte
-    boundaries): ``f32x4`` for float32 with n % 4 == 0, ``bf16x8`` for
-    bfloat16 with n % 8 == 0, ``scalar`` otherwise."""
-    if dtype not in _cuda.DTYPE_CODES:
-        raise TypeError(f"the kernel takes float32 or bfloat16, not {dtype}")
-    if aligned and dtype == torch.float32 and n % 4 == 0:
-        return "f32x4"
-    if aligned and dtype == torch.bfloat16 and n % 8 == 0:
-        return "bf16x8"
-    return "scalar"
 
 
 def range_chunks(t: int) -> int:
@@ -240,7 +223,6 @@ def merge_spmm_cuda(structure: dict, vals: torch.Tensor, b: torch.Tensor,
         act, has_scale, scale, out.data_ptr(), _cuda.DTYPE_CODES[out_dtype],
         carry.data_ptr(), batch, n_chunks, t, TM, vals.shape[0], m, k, n, g,
         dev.index, _cuda.stream_of(b), ctypes.byref(body)), "merge_spmm")
-    name = BODIES[body.value]
     LAUNCHES += 1
-    LAUNCHES_BY_BODY[name] = LAUNCHES_BY_BODY.get(name, 0) + 1
+    _cuda.count_launch(LAUNCHES_BY_BODY, body.value)
     return out

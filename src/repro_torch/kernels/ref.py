@@ -190,6 +190,153 @@ def rowsplit_execute_ref(structure: dict, vals: torch.Tensor,
     return _map_leading(one, b, res)
 
 
+def rowsplit_schedule_ref(structure: dict, vals: torch.Tensor,
+                          b: torch.Tensor, m: int, parts: int, *,
+                          epilogue=None, bias=None, residual=None,
+                          acc_dtype=torch.float32,
+                          out_dtype=None) -> torch.Tensor:
+    """The row-split kernel's schedule replayed in tensor ops: the same C as
+    :func:`rowsplit_execute_ref`, reached the kernel's way.
+
+    Each row's L slots form groups of 32 (the last one padded with dead
+    slots), split in ``parts`` contiguous parts of ``ceil(groups / parts)``
+    groups.  A part walks its groups in order and stops after the first
+    one that is not all live (a group with no live slot adds nothing), so
+    it never reads past the row's end; the parts' partial sums are then
+    added in part order, and the epilogue is applied once.  Raises if a
+    live slot lies past the point where its part stopped, i.e. if the
+    structure breaks the ELL prefix property (``rowsplit_spmm.ell_slots``)
+    that the kernel's early stop relies on.  Arguments as in
+    :func:`rowsplit_execute_ref`.
+    """
+    odt = torch.promote_types(vals.dtype, b.dtype) if out_dtype is None \
+        else out_dtype
+    ep = epilogue
+    nnz_pad = vals.shape[0]
+    m_pad, l = structure["cols"].shape
+    groups = -(-l // 32)
+    pad = groups * 32 - l
+    live = torch.nn.functional.pad(structure["slot_nz"] < nnz_pad, (0, pad))
+    full = live.reshape(m_pad, groups, 32).all(-1)
+    per = -(-groups // parts)
+    walked = torch.zeros((m_pad, groups), dtype=torch.bool,
+                         device=live.device)
+    bounds = [(p * per, min(groups, (p + 1) * per)) for p in range(parts)]
+    for g0, g1 in bounds:
+        if g0 < g1:                 # group g0 always; later ones while full
+            walked[:, g0] = True
+            walked[:, g0 + 1:g1] = torch.cumprod(
+                full[:, g0:g1 - 1].int(), 1).bool()
+    read = live & walked.repeat_interleave(32, 1)
+    if bool((live & ~read).any()):
+        raise AssertionError("a live slot lies past its part's first group "
+                             "with a dead slot (the ELL prefix property)")
+    ell_vals = torch.nn.functional.pad(apply_vals(structure, vals),
+                                       (0, pad)).to(acc_dtype)
+    ell_vals = torch.where(read, ell_vals, 0)
+    cols = torch.nn.functional.pad(structure["cols"].long(), (0, pad))
+    bias_col = bias.to(acc_dtype)[:, None] \
+        if ep is not None and ep.bias else None
+
+    def one(b2, res2):
+        c = None
+        for g0, g1 in bounds:       # the parts' partials, in part order
+            s0, s1 = 32 * g0, 32 * g1
+            part = torch.einsum("ml,mln->mn", ell_vals[:, s0:s1],
+                                b2.to(acc_dtype)[cols[:, s0:s1]])
+            c = part if c is None else c + part
+        return _finish(c[:m], ep, bias_col, res2, odt)
+
+    res = residual if ep is not None and ep.residual else None
+    if b.dim() == 2:
+        return one(b, res)
+    return _map_leading(one, b, res)
+
+
+# The columns a lane owns in a 128-column slice, by body (csrc/
+# spmm_common.cuh Layout): (values a lane, their stride, rows taken at
+# once by as many groups of lanes).
+_LAYOUTS = {"f32x4": (4, 1, 1), "bf16x8": (8, 1, 2), "scalar": (4, 32, 1)}
+
+
+def _transposed_sums(tile: torch.Tensor) -> torch.Tensor:
+    """The kernel's transposed reduction: tile (..., lanes, K) holds lane
+    l's partial of nonzero i at [..., l, i]; returns (..., K), column i
+    summed over the lanes in lane order, as lane i of the kernel sums it."""
+    s = tile[..., 0, :]
+    for lane in range(1, tile.shape[-2]):
+        s = s + tile[..., lane, :]
+    return s
+
+
+def sddmm_schedule_ref(rows: torch.Tensor, cols: torch.Tensor,
+                       valid: torch.Tensor, dc: torch.Tensor,
+                       b: torch.Tensor, g: int,
+                       body: str = "f32x4") -> torch.Tensor:
+    """The SDDMM kernel's schedule replayed in tensor ops: the same dots as
+    :func:`sddmm_ref` (in float32), reached the kernel's way.
+
+    The nonzeros form groups of 32 (the last padded with dead slots);
+    worker w walks the ``g`` groups [w g, (w + 1) g).  In each 128-column
+    slice a lane owns the columns of ``body``'s layout and writes one
+    partial (dC row · B row over its columns) for each nonzero of its half
+    of the group (all 32, or 16 a half-warp in ``bf16x8``), 0 for dead
+    ones, to its row of a tile; the transposed reduction sums nonzero j's
+    column of the tile over the lanes of its half in lane order (lane j of
+    the kernel), and the slices' sums are added in slice order.  Dead
+    slots are written as 0.  Raises unless every slot is written exactly
+    once.
+    ``dc``/``b`` may carry leading batch dims, kept per element.
+    """
+    per, stride, slots = _LAYOUTS[body]
+    lanes = 32 // slots
+    nnz_pad = rows.shape[0]
+    n_groups = -(-nnz_pad // 32)
+    pad = n_groups * 32 - nnz_pad
+    live = torch.nn.functional.pad(valid, (0, pad))
+    r = torch.nn.functional.pad(rows.long(), (0, pad))
+    c = torch.nn.functional.pad(cols.long(), (0, pad))
+
+    def one(dc2, b2):
+        n = dc2.shape[-1]
+        out = torch.zeros(n_groups * 32, dtype=torch.float32,
+                          device=dc2.device)
+        written = torch.zeros(n_groups * 32, dtype=torch.int64,
+                              device=dc2.device)
+        for w in range(-(-n_groups // g)):
+            s = slice(32 * w * g, 32 * min(n_groups, (w + 1) * g))
+            rw, cw, lw = r[s], c[s], live[s]
+            total = torch.zeros(rw.shape[0], dtype=torch.float32,
+                                device=dc2.device)
+            for s0 in range(0, n, 128):     # slices, in order
+                lane = torch.arange(lanes, device=dc2.device)
+                q = torch.arange(per, device=dc2.device)
+                own = (s0 + lane[:, None] * per + q if stride == 1
+                       else s0 + lane[:, None] + stride * q)   # (lanes, per)
+                inside = own < n
+                own = own.clamp(max=n - 1)
+                d = dc2.float()[rw][:, own] * inside    # (nz, lanes, per)
+                x = b2.float()[cw][:, own] * inside
+                part = torch.where(lw[:, None], (d * x).sum(-1), 0)
+                # (groups, halves, nonzero i of the half, lane) -> the
+                # tile [lane][i] of each half, summed by columns.
+                part = part.reshape(-1, slots, lanes, lanes).transpose(-1, -2)
+                total = total + _transposed_sums(part).reshape(-1)
+            out[s] = torch.where(lw, total, 0)
+            written[s] += 1
+        if not bool((written == 1).all()):
+            raise AssertionError("slots written other than once")
+        return out[:nnz_pad]
+
+    if dc.dim() == 2:
+        return one(dc, b)
+    lead = dc.shape[:-2]
+    dc3 = dc.reshape((-1,) + dc.shape[-2:])
+    b3 = b.reshape((-1,) + b.shape[-2:])
+    return torch.stack([one(dc3[i], b3[i]) for i in range(dc3.shape[0])]
+                       ).reshape(lead + (nnz_pad,))
+
+
 def sddmm_ref(rows: torch.Tensor, cols: torch.Tensor, valid: torch.Tensor,
               dc: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Plain version of the SDDMM kernel: the gather-dot oracle.

@@ -5,14 +5,22 @@
   arrays, L = the longest row rounded up to ``TL``.  Element-for-element
   the reference planner's arrays (``repro.kernels.rowsplit_spmm``).
 * **The kernel** (:func:`rowsplit_spmm_cuda`): the hand-written CUDA
-  kernel in ``csrc/rowsplit_spmm.cu`` — one warp per (batch, row,
-  128-column slice), (col, value) broadcast by ``__shfl_sync``, coalesced
-  row-major B loads, the fused epilogue at the single C write.  It takes
-  any ELL slot block (:func:`ell_slots`), which the row-grouped method
-  reuses per length bucket.  Its plain PyTorch version is
-  ``repro_torch.kernels.ref.rowsplit_execute_ref``.
+  kernel in ``csrc/rowsplit_spmm.cu`` -- one warp per (batch, row,
+  128-column slice), slots 32 at a time with the next 32 prefetched,
+  (col, value) broadcast by ``__shfl_sync``, 16-byte row-major B loads
+  (the bodies of ``_cuda.body_for``), the fused epilogue at the single C
+  write.  A row's walk stops at its first group of 32 slots with a dead
+  slot (the ELL prefix property of :func:`ell_slots`), and a short, wide
+  matrix splits each row's groups into :func:`row_parts` parts whose
+  partials one block sums in part order.  It takes any ELL slot block
+  (:func:`ell_slots`), which the row-grouped method reuses per length
+  bucket.  Its plain PyTorch version is
+  ``repro_torch.kernels.ref.rowsplit_execute_ref``;
+  ``ref.rowsplit_schedule_ref`` replays its schedule in tensor ops.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -23,8 +31,21 @@ from . import _cuda
 TM = 8
 DEFAULT_TL = 16
 
-# Launches of the row-split kernel, one per rowsplit_spmm_cuda call.
+# Parts of a row: more warps for a matrix of few rows, within one wave.
+# The kernel holds 4 blocks of 8 warps an SM (its register cap); a row's
+# groups of 32 slots split in up to MAX_PARTS parts (the warps of a
+# block), each of at least MIN_PART_GROUPS groups.  At Llama-3.2-1B's FFN
+# shapes (n = 128) on 132 SMs: w1 (8192 rows of 512) runs 8192 warps,
+# r = 1; w2 (2048 rows of 2048) 2048 warps, r = 2, 4096 warps (on the
+# H100, r = 2 was the fastest of 1, 2, 4 and 8 at w2).
+RESIDENT_WARPS_PER_SM = 32
+MAX_PARTS = 8
+MIN_PART_GROUPS = 4
+
+# Launches of the row-split kernel, one per rowsplit_spmm_cuda call, and
+# the same launches by the body that ran.
 LAUNCHES = 0
+LAUNCHES_BY_BODY: dict[str, int] = {}
 
 
 def ell_slots(a: CSR, rows: torch.Tensor, l: int, *, tm: int = TM) -> dict:
@@ -34,6 +55,12 @@ def ell_slots(a: CSR, rows: torch.Tensor, l: int, *, tm: int = TM) -> dict:
     Invalid slots carry ``slot_nz == nnz_pad`` — the sentinel that reads a
     zero value — and the column gather is sentinel-extended so a 0-nnz
     pattern (empty ``col_ind``) stays constructible.
+
+    The prefix property, a contract of the structure that the kernel
+    relies on: each row's live slots (``slot_nz < nnz_pad``) come first,
+    in CSR order, and every slot after the first dead one is dead (pad rows
+    are all dead).  So the kernel ends a row at its first group of 32
+    slots that holds a dead slot.
     """
     i32, i64 = torch.int32, torch.int64
     dev = a.device
@@ -67,10 +94,27 @@ def plan_rowsplit_structure(a: CSR, *, l_pad: int, tl: int = DEFAULT_TL,
     return ell_slots(a, rows, l, tm=tm)
 
 
+def row_parts(m: int, n: int, l: int, batch: int, sm_count: int) -> int:
+    """r, the parts the kernel splits each row's ``ceil(l / 32)`` groups
+    of slots into: doubled from 1 while the launch's ``batch * m *
+    ceil(n / 128) * 2 r`` warps would still fit one wave (``sm_count *
+    RESIDENT_WARPS_PER_SM``), up to MAX_PARTS and while each part keeps
+    at least MIN_PART_GROUPS groups."""
+    warps = batch * m * -(-n // 128)
+    groups = -(-l // 32)
+    r = 1
+    while (r < MAX_PARTS
+           and warps * 2 * r <= sm_count * RESIDENT_WARPS_PER_SM
+           and groups >= 2 * r * MIN_PART_GROUPS):
+        r *= 2
+    return r
+
+
 def rowsplit_spmm_cuda(structure: dict, vals: torch.Tensor,
                        b: torch.Tensor, m: int, *, epilogue=None,
                        bias=None, residual=None,
-                       out_dtype: torch.dtype | None = None) -> torch.Tensor:
+                       out_dtype: torch.dtype | None = None,
+                       parts: int | None = None) -> torch.Tensor:
     """The kernel on the card: ``b`` (batch, k, n) row-major → C
     (batch, m, n) over the ELL block ``structure`` (``cols``/``slot_nz``
     (m_pad, L), m_pad >= m).
@@ -78,9 +122,10 @@ def rowsplit_spmm_cuda(structure: dict, vals: torch.Tensor,
     ``vals`` are the raw (nnz_pad,) values, gathered in-kernel through
     ``slot_nz``; ``epilogue`` with ``bias (m,)`` / ``residual
     (batch, m, n)`` per its flags is applied in float32 at the single
-    write, cast to ``out_dtype`` (default: b's dtype).  Launches on the
-    current stream without synchronising; raises on any operand the
-    kernel does not take.
+    write, cast to ``out_dtype`` (default: b's dtype).  ``parts`` (1, 2,
+    4 or 8; default :func:`row_parts` on b's device) splits each row's
+    slot groups among that many warps.  Launches on the current stream
+    without synchronising; raises on any operand the kernel does not take.
     """
     global LAUNCHES
     if not b.is_cuda:
@@ -104,16 +149,22 @@ def rowsplit_spmm_cuda(structure: dict, vals: torch.Tensor,
     if out_dtype not in _cuda.DTYPE_CODES:
         raise TypeError(f"the row-split kernel writes float32 or bfloat16, "
                         f"not {out_dtype}")
+    if parts is None:
+        parts = row_parts(m, n, l, batch, _cuda.sm_count(dev))
+    if parts not in (1, 2, 4, 8):
+        raise ValueError(f"parts must be 1, 2, 4 or 8, got {parts}")
     bias, residual, act, has_scale, scale = _cuda.epilogue_args(
         epilogue, bias, residual, device=dev, m=m, batch=batch, n=n)
     lib = _cuda.library()
     out = torch.empty((batch, m, n), dtype=out_dtype, device=dev)
+    body = ctypes.c_int(-1)
     _cuda.check(lib.repro_rowsplit_spmm(
         structure["cols"].data_ptr(), structure["slot_nz"].data_ptr(),
         vals.data_ptr(), _cuda.DTYPE_CODES[vals.dtype], b.data_ptr(),
         _cuda.DTYPE_CODES[b.dtype], _cuda.ptr(bias), _cuda.ptr(residual),
         act, has_scale, scale, out.data_ptr(), _cuda.DTYPE_CODES[out_dtype],
-        batch, m, l, vals.shape[0], k, n, dev.index, _cuda.stream_of(b)),
-        "rowsplit_spmm")
+        batch, m, l, vals.shape[0], k, n, parts, dev.index,
+        _cuda.stream_of(b), ctypes.byref(body)), "rowsplit_spmm")
     LAUNCHES += 1
+    _cuda.count_launch(LAUNCHES_BY_BODY, body.value)
     return out

@@ -190,25 +190,28 @@ def test_range_chunks_rule():
 ])
 def test_body_rule(dtype, n, aligned, body):
     """Which body the kernel runs, as its C entry reports it and
-    chip_smoke.py asserts it on the card."""
-    assert merge_spmm.body_for(dtype, n, aligned=aligned) == body
+    chip_smoke.py asserts it on the card (the rule is shared with
+    row-split and the SDDMM)."""
+    assert _cuda.body_for(dtype, n, aligned=aligned) == body
 
 
 def test_body_rule_refuses_other_dtypes():
     with pytest.raises(TypeError):
-        merge_spmm.body_for(torch.float16, 128)
+        _cuda.body_for(torch.float16, 128)
 
 
 def test_body_codes_match_the_kernel():
-    """BODIES names the codes that the C entry reports (enum MergeBody in
-    csrc/merge_spmm.cu)."""
-    src = (_cuda.CSRC / "merge_spmm.cu").read_text()
-    enum = re.search(r"enum MergeBody : int \{([^}]*)\}", src).group(1)
+    """_cuda.BODIES names the codes that the C entry reports (enum SpmmBody in
+    csrc/spmm_common.cuh, which csrc/merge_spmm.cu includes)."""
+    src = (_cuda.CSRC / "spmm_common.cuh").read_text()
+    enum = re.search(r"enum SpmmBody : int \{([^}]*)\}", src).group(1)
     codes = {name.strip(): int(val) for name, val in
              (item.split("=") for item in enum.split(","))}
-    assert codes == {"kMergeScalar": merge_spmm.BODIES.index("scalar"),
-                     "kMergeF32x4": merge_spmm.BODIES.index("f32x4"),
-                     "kMergeBf16x8": merge_spmm.BODIES.index("bf16x8")}
+    assert codes == {"kBodyScalar": _cuda.BODIES.index("scalar"),
+                     "kBodyF32x4": _cuda.BODIES.index("f32x4"),
+                     "kBodyBf16x8": _cuda.BODIES.index("bf16x8")}
+    assert '#include "spmm_common.cuh"' in (
+        _cuda.CSRC / "merge_spmm.cu").read_text()
 
 
 def test_plain_runs_count_no_launch():
