@@ -17,8 +17,9 @@ NVIDIA H100 (sm_90a) and the CUDA toolkit.  Phases, each timed:
               card: the six matrix kinds of the reference's kernel tests,
               the two Llama-3.2-1B FFN shapes, a 0-nnz pattern (every row
               epilogue(0)) and merge's schedule edges (rows of 2200-4100
-              nonzeros; 16 rows then 1084 empty ones), n in {1, 32, 128,
-              160}, f32 and bf16, 2-D and batched; the SpMMs with three
+              nonzeros; 16 rows then 1084 empty ones), the SpMMs at n in
+              {1, 8, 16, 32, 64, 128, 160} (the SDDMM at {1, 32, 128,
+              160}), f32 and bf16, 2-D and batched; the SpMMs with three
               epilogues; every SpMM and SDDMM call bit-identical to a
               second one and its body (f32x4, bf16x8, scalar) held to
               ``_cuda.body_for``; row-split also with each row split in
@@ -43,15 +44,34 @@ NVIDIA H100 (sm_90a) and the CUDA toolkit.  Phases, each timed:
               backward's SDDMM and dB (merge on the transpose plan); the
               device operations of one merge call (its range kernel and
               fix-up, no fill or memset);
-              merge, row-split and ``torch.sparse.mm`` on a skewed
-              power-law matrix (held to nothing); the grouped GEMM at the
+              merge, row-split, rowgroup and ``torch.sparse.mm`` on a
+              skewed power-law matrix (rowgroup, one row-split launch a
+              length bucket, held to its plain version, its buckets and
+              their row parts printed; the others to the library call); the
+              grouped GEMM at the
               MoE path's shapes against ``torch.bmm`` and its bound;
 5. serving  — ``serve_pruned`` on Llama-3.2-1B at full width (16 layers,
               random weights from a seed), batch 4 x prompt 32, keep 0.25,
-              once with the §5.4 rule (row-split) and once forcing merge,
-              with launch counts, plans built while serving, the SpMMs'
-              device time, and the two runs' logits compared; plus the
-              smoke config on the card against the same model on the CPU;
+              once with the §5.4 rule (row-split), once forcing merge and
+              once forcing rowgroup (its length buckets printed; one a
+              matrix, so its logits equal row-split's bit for bit), with
+              launch counts, plans built while serving, the SpMMs' device
+              time, and the runs' logits compared; plus the smoke config
+              on the card against the same model on the CPU;
+   online   — ``serve_online`` on the same model and params: 9 bucket
+              programs (lengths 8/16/32 x batches 1/2/4), each a CUDA
+              graph, with its capture seconds; 64 Poisson requests of
+              lengths 8-32 at the auto rate (ok/shed/error, req/s, p50,
+              p99, recompiles and plans built after warmup, both 0); per
+              bucket the row-split kernel against its plain version on the
+              served plans of the first and last layers at the bucket's
+              width, and the eager forward against the graph replay (host
+              ms synchronised and device busy, each replay bit-equal to the
+              eager forward); every request of the load run held bit for
+              bit to the eager forward of the bucket matrix it was packed
+              in and, packed with others, to a solo forward within the
+              serving bars; ``serve_pruned(..., microbatch=2)`` held to the
+              unbatched logits;
 6. training — sparse fine-tuning of layer 0's pruned FFN at full width
               (``make_sparse_train_step``, 5 SGD steps toward the dense
               FFN's output) for both methods: losses, step times, device
@@ -113,12 +133,25 @@ SRC = os.path.join(ROOT, "src")
 # bf16 rounding (2^-8 relative) of f32 sums that differ in the last bits.
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+# B widths of the SpMM parity: 1, the online path's n = batch x length of
+# its buckets (8, 16, 32, 64, 128), and 160, past one 128-column slice.
+PARITY_N = (1, 8, 16, 32, 64, 128, 160)
 # Llama-3.2-1B logits of the row-split run vs the merge run: the SpMMs are
 # f32 in both, but the bf16 residual stream rounds each layer's output
 # (2^-8 relative), so a last-bit difference of one SpMM can flip a bf16
 # rounding and travel through 16 layers.  |logits| ~ 1 after the final
 # norm.
 SERVE_TOL = dict(max_abs=0.25, rel_fro=2e-2)
+# Rowgroup's kernels vs its plain version on the power-law matrix: f32 sums
+# of up to 11,853 products in other orders (the kernel's slots 32 at a time
+# in r parts, the plain version's batched dot products).  The error of such
+# a sum grows with the row's magnitude, not the element's, so the absolute
+# part is 2e-5 of the largest |C|.
+POWER_LAW_TOL = dict(rtol=2e-5, atol_of_max=2e-5)
+# The online phase: the reference serve CLI's --serve path at batch 4 x
+# prompt 32 (buckets 8/16/32 x 1/2/4), 64 Poisson requests of lengths
+# 8-32 (prompt / 4 to prompt) at the auto rate.
+ONLINE_REQUESTS = 64
 # The smoke model in f32 on the card vs the CPU: summation order only.
 SMOKE_TOL = dict(rtol=1e-4, atol=1e-4)
 # SDDMM kernel vs plain version.  f32: both sum n <= 160 products of unit
@@ -347,6 +380,21 @@ def gather_tb_s(nnz, n, itemsize, ms) -> str:
     """The rate at which a kernel gathers B rows (one row of n values a
     nonzero, from L2 where B fits it), as printed beside the bound."""
     return f"{nnz * n * itemsize / (ms * 1e-3) / 1e12:.2f} TB/s"
+
+
+def serve_gap(what, got, want) -> float:
+    """Print the gap between two serving runs' logits and raise unless it
+    is within SERVE_TOL; returns max |d|."""
+    d = (got.float() - want.float()).abs()
+    rel = (torch.linalg.vector_norm(d) / torch.linalg.vector_norm(
+        want.float())).item()
+    print(f"{what}: max |d| {d.max().item():.4e}, relative Frobenius "
+          f"{rel:.4e}, max |logit| {want.abs().max().item():.3f} (tol "
+          f"max_abs {SERVE_TOL['max_abs']}, rel_fro {SERVE_TOL['rel_fro']})")
+    if not (d.max().item() <= SERVE_TOL["max_abs"]
+            and rel <= SERVE_TOL["rel_fro"]):
+        raise AssertionError(f"{what}: outside the serving bars")
+    return d.max().item()
 
 
 def check_close(what, got, want, tol):
@@ -685,15 +733,18 @@ def timing_backward(llama_matrix, dev, card) -> dict:
 
 
 def timing_power_law(dev, card) -> dict:
-    """Merge, row-split and ``torch.sparse.mm`` on a skewed matrix, where
-    the merge path is meant to win: ``power_law_csr`` at POWER_LAW (about as
-    many nonzeros as one Llama FFN matrix, row lengths from 1 to ~12 k),
-    B (k, 128) f32.  Row-split's plan pads every row to the longest, so its
-    ELL arrays are built here a block of rows at a time (the planner's
-    int64 temporaries for all rows would not fit the card).  Timed and
-    printed, held to nothing but agreeing with the library call."""
+    """Merge, row-split, rowgroup and ``torch.sparse.mm`` on a skewed
+    matrix, where the merge path is meant to win: ``power_law_csr`` at
+    POWER_LAW (about as many nonzeros as one Llama FFN matrix, row lengths
+    from 1 to ~12 k), B (k, 128) f32.  Row-split's plan pads every row to
+    the longest, so its ELL arrays are built here a block of rows at a time
+    (the planner's int64 temporaries for all rows would not fit the card);
+    rowgroup pads each length octave to its own longest and runs one
+    row-split launch a bucket, held to its plain version.  Timed and
+    printed, each agreeing with the library call."""
     from repro_torch.core import PlanPolicy, build_plan, power_law_csr
-    from repro_torch.kernels import merge_spmm, rowsplit_spmm
+    from repro_torch.kernels import (_cuda, merge_spmm, ops, rowgroup_spmm,
+                                     rowsplit_spmm)
     seed, m, d, alpha = (POWER_LAW[x] for x in ("seed", "m", "d", "alpha"))
     n = SERVE_BATCH * SERVE_PROMPT
     t0 = time.perf_counter()
@@ -719,10 +770,24 @@ def timing_power_law(dev, card) -> dict:
         warnings.simplefilter("ignore")
         sp = torch.sparse_csr_tensor(a.row_ptr, a.col_ind, a.vals, (m, m),
                                      check_invariants=True)
+    t0 = time.perf_counter()
+    rg = build_plan(a, PlanPolicy(method="rowgroup", with_transpose=False))
+    rg_s = time.perf_counter() - t0
+    sms = _cuda.sm_count(dev)
+    buckets = [(m_g, l_g, rowsplit_spmm.row_parts(m_g, n, l_g, 1, sms))
+               for m_g, l_g in rg.meta.extra]
+    rg_bytes = sum(g[key].numel() * 4 for g in rg.fwd["groups"]
+                   for key in ("cols", "slot_nz"))
+
+    def rowgroup(impl):
+        return rowgroup_spmm.rowgroup_execute_parts(
+            rg.meta.extra, rg.fwd, a.vals, b, impl=impl)
+
     cases = {
         "merge": lambda: merge_spmm.merge_spmm_cuda(fwd, a.vals, b[None], m),
         "rowsplit": lambda: rowsplit_spmm.rowsplit_spmm_cuda(
             ell, a.vals, b[None], m),
+        "rowgroup": lambda: rowgroup("cuda"),
         "library": lambda: torch.sparse.mm(sp, b),
     }
     lib = cases["library"]()
@@ -732,12 +797,54 @@ def timing_power_law(dev, card) -> dict:
         if not torch.allclose(got, lib, rtol=1e-3, atol=1e-3):
             raise AssertionError(f"power law: {name} disagrees with "
                                  "torch.sparse.mm")
+    # Rowgroup: one counted row-split launch a bucket, held to its plain
+    # version (and, like the others, to the library call).
+    before = rowsplit_spmm.LAUNCHES
+    got = rowgroup("cuda")
+    launched = rowsplit_spmm.LAUNCHES - before
+    want = rowgroup("torch")
+    torch.cuda.synchronize()
+    if launched != len(buckets):
+        raise AssertionError(f"power law: rowgroup launched {launched} "
+                             f"row-split kernels for {len(buckets)} buckets")
+    tol = dict(rtol=POWER_LAW_TOL["rtol"], atol=POWER_LAW_TOL["atol_of_max"]
+               * want.abs().max().item())
+    rg_err, _ = check_close("power law rowgroup", got, want, tol)
+    if not torch.allclose(got, lib, rtol=1e-3, atol=1e-3):
+        raise AssertionError("power law: rowgroup disagrees with "
+                             "torch.sparse.mm")
+    plain_ms = time_ms(lambda: rowgroup("torch"), reps=3, inner=1)
+    del got, want
     out = {name: time_ms(fn, reps=5, inner=5) for name, fn in cases.items()}
     nbytes = nnz * 8 + (m + 1) * 4 + 2 * m * n * 4
     t_b, t_o = nbytes / HBM_BYTES_PER_S, 2 * nnz * n / FP32_FLOP_PER_S
     out.update(bound_ms=max(t_b, t_o) * 1e3,
                bound_by="bytes" if t_b >= t_o else "operations", nnz=nnz,
-               longest_row=longest, ell_width=l)
+               longest_row=longest, ell_width=l, rowgroup_plain_ms=plain_ms,
+               rowgroup_max_abs_err=rg_err, rowgroup_buckets=buckets,
+               rowgroup_ell_bytes=rg_bytes, rowsplit_ell_bytes=2 * m * l * 4)
+    # Where rowgroup's time goes: each bucket's launch alone, and the
+    # device operations of one call (the launches, the concatenation and
+    # the un-permuting gather).
+    bucket_ms = []
+    for (m_g, l_g, r), gs in zip(buckets, rg.fwd["groups"]):
+        ms = time_ms(lambda gs=gs, m_g=m_g: ops.rowsplit_execute(
+            gs, a.vals, b, m=m_g, impl="cuda"), reps=5, inner=5)
+        bucket_ms.append(ms)
+        print(f"power law rowgroup bucket: {m_g} rows padded to {l_g} slots, "
+              f"row parts r {r}: {ms:.4f} ms alone")
+    out["rowgroup_bucket_ms"] = bucket_ms
+    busy = profile_device(lambda: rowgroup("cuda"), top=6)
+    print(f"power law rowgroup call: device busy {busy:.4f} ms, the buckets "
+          f"alone {sum(bucket_ms):.4f} ms")
+    print(f"power law rowgroup: {len(buckets)} buckets (plan {rg_s:.1f} s), "
+          f"ELL {rg_bytes} B ({rg_bytes / 2**30:.3f} GiB) against row-split's "
+          f"{2 * m * l * 4} B; {launched} row-split launches a call, held to "
+          f"its plain version (max |d| {rg_err:.3e}, tol rtol "
+          f"{tol['rtol']} atol {tol['atol']:.3e}); kernel "
+          f"{out['rowgroup']:.4f} ms "
+          f"({gather_tb_s(nnz, n, 4, out['rowgroup'])}), plain "
+          f"{plain_ms:.4f} ms; {card}")
     print(f"power law {m} x {m} (seed {seed}, d {d}, alpha {alpha}; made in "
           f"{made_s:.1f} s on the host): nnz {nnz}, rows {int(lengths.min())}"
           f"-{longest} long (mean {nnz / m:.2f}), n {n} f32: merge "
@@ -747,9 +854,186 @@ def timing_power_law(dev, card) -> dict:
           f"{2 * m * l * 4 / 2**30:.2f} GiB of plan arrays), "
           f"torch.sparse.mm {out['library']:.4f} ms, bound "
           f"{out['bound_ms']:.6f} ms ({out['bound_by']}); {card}")
-    del ell, fwd, sp, a, b, lib
+    del ell, fwd, sp, a, b, lib, rg
     torch.cuda.empty_cache()
     return out
+
+
+def online(cfg, params, prompt, unbatched, dev, card, reset_counts,
+           read_counts) -> dict:
+    """The serve CLI's ``--serve`` path, ``serve.serve_online``, on the
+    serving phase's full-width model and params (row-split by the §5.4
+    rule); then, per bucket, the row-split kernel held to its plain version
+    on the served plans at the bucket's width and the graph replay held to
+    the eager forward; every request of the load run held to the eager
+    forward of the bucket matrix it was packed in; microbatched scoring
+    held to the unbatched logits.
+
+    Launches on this path: the wrappers count each bucket's warm eager call
+    and its capture.  The capture only records its launches, which run when
+    the graph replays, and a replay passes through no wrapper.  So the
+    path's launches are the warm calls' plus, for each graph, its
+    ``replays`` times the launches of one eager forward at its bucket
+    (measured here; the wrapper count must be twice their sum, a warm call
+    and a capture a bucket)."""
+    from repro_torch.core import ExecutionConfig
+    from repro_torch.engine import GraphProgram
+    from repro_torch.launch import serve
+    reset_counts()
+    t0 = time.perf_counter()
+    rep = serve.serve_online(cfg, params, KEEP, batch=SERVE_BATCH,
+                             prompt_len=SERVE_PROMPT,
+                             requests=ONLINE_REQUESTS, seed=SEED,
+                             keep_served=True)
+    run_s = time.perf_counter() - t0
+    counts = read_counts()
+    srv, load = rep.server, rep.load
+    shapes = srv.ladder.shapes()
+    progs = {sh: srv.program(*sh) for sh in shapes}
+    replays = {sh: prog.replays for sh, prog in progs.items()}
+    print(f"online: {len(progs)} bucket programs {sorted(progs)} built in "
+          f"{rep.warmup_s:.3f} s; offered {rep.rate_rps:.1f} req/s; "
+          f"{load.ok}/{load.n} ok, {load.shed} shed, {load.error} error in "
+          f"{load.wall_s:.3f} s = {load.throughput_rps:.2f} req/s, p50 "
+          f"{load.p50_us / 1e3:.3f} ms, p99 {load.p99_us / 1e3:.3f} ms; "
+          f"recompiles after warmup {rep.recompiles}, plans built while "
+          f"serving {rep.replans}; wrapper launches {counts} (warm calls "
+          f"and captures), replays {sum(replays.values())} {replays}; "
+          f"run {run_s:.2f} s; {card}")
+    if len(progs) != 9 or not all(isinstance(p, GraphProgram)
+                                  for p in progs.values()):
+        raise AssertionError(f"online: expected 9 CUDA graphs, got "
+                             f"{ {k: type(v).__name__ for k, v in progs.items()} }")
+    if (load.ok, load.shed, load.error) != (ONLINE_REQUESTS, 0, 0) or \
+            rep.recompiles or rep.replans:
+        raise AssertionError("online: a request was not served, or the run "
+                             "built a program or a plan after warmup")
+    p, blocks = srv.state
+    base = serve.make_pruned_forward(cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    per_forward = {}
+    buckets = {}
+    max_abs = 0.0
+    # The kernel at each bucket's width n = batch x length, on the served
+    # plans of the first and last layers (w1/w3 8192 x 2048, w2 2048 x 8192)
+    # with B f32 as the forward gives it, against its plain version.
+    held = [(f"layer {i} {name}", sl) for i in (0, len(blocks) - 1)
+            for name, sl in blocks[i]["mlp"].items()]
+    for bb, lb in shapes:
+        for what, sl in held:
+            x = torch.randn((bb, lb, sl.weight.k), generator=gen,
+                            device=dev)
+            before = read_counts()["rowsplit_spmm"]
+            with torch.inference_mode():
+                got = sl(x, ExecutionConfig(impl="cuda"))
+                want = sl(x, ExecutionConfig(impl="torch"))
+            if read_counts()["rowsplit_spmm"] - before != 1:
+                raise AssertionError(f"online {bb}x{lb} {what}: expected 1 "
+                                     "row-split launch")
+            d, _ = check_close(f"online {bb}x{lb} {what} (n={bb * lb})",
+                               got, want, TOL["float32"])
+            max_abs = max(max_abs, d)
+        tok = torch.randint(0, cfg.vocab_size, (bb, lb), generator=gen,
+                            device=dev)
+        prog = progs[(bb, lb)]
+
+        def eager():
+            with torch.inference_mode():
+                return base(p, blocks, tok)
+
+        def replay():
+            return prog(tok)
+
+        before = read_counts()
+        want = eager()
+        after = read_counts()
+        launched = {k: after[k] - before[k] for k in after}
+        if launched["rowsplit_spmm"] != sum(launched.values()) or \
+                not launched["rowsplit_spmm"]:
+            raise AssertionError(f"online {bb}x{lb}: the eager forward "
+                                 f"launched {launched}")
+        per_forward[(bb, lb)] = launched["rowsplit_spmm"]
+        got = replay().clone()
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            d = (got - want).abs().max().item()
+            raise AssertionError(f"online {bb}x{lb}: the graph replay "
+                                 f"differs from the eager forward (max |d| "
+                                 f"{d:.3e})")
+        e_ms, r_ms = host_ms(eager), host_ms(replay)
+        r_event = time_ms(replay, reps=5, inner=3)
+        e_busy = profile_device(eager, top=0)
+        r_busy = profile_device(replay, top=4)
+        buckets[f"{bb}x{lb}"] = dict(
+            capture_s=prog.capture_s, eager_ms=e_ms, replay_ms=r_ms,
+            replay_event_ms=r_event, eager_busy_ms=e_busy,
+            replay_busy_ms=r_busy)
+        print(f"online bucket {bb}x{lb}: row-split kernel vs plain version "
+              f"on the {len(held)} matrices of layers 0 and "
+              f"{len(blocks) - 1} at n={bb * lb}, max |d| so far "
+              f"{max_abs:.3e} (tol {TOL['float32']}); captured in "
+              f"{prog.capture_s:.3f} s (warm call + capture); eager "
+              f"{e_ms:.3f} ms host, {e_busy:.3f} ms device busy; graph "
+              f"replay {r_ms:.3f} ms host, {r_busy:.3f} ms device busy, "
+              f"{r_event:.3f} ms by CUDA events; replay bit-equal to eager; "
+              f"{per_forward[(bb, lb)]} row-split launches a forward; {card}")
+        del got, want
+    warm = sum(per_forward.values())
+    if counts["rowsplit_spmm"] != 2 * warm:
+        raise AssertionError(f"online: the wrappers counted "
+                             f"{counts['rowsplit_spmm']} launches, expected "
+                             f"a warm call and a capture a bucket, 2 x {warm}")
+    launches = warm + sum(n * per_forward[sh] for sh, n in replays.items())
+    srv.programs.clear()
+    del progs, prog
+    # Every request of the load run: its rows bit-equal to the eager forward
+    # of the bucket matrix the batcher packed it in (same shape, so the same
+    # kernels and algorithms), and, packed with others, within the serving
+    # bars of a solo forward at batch bucket 1.
+    mix, solo_gap = {}, 0.0
+    batches = {}
+    for tokens, fut in load.served:
+        batches.setdefault(id(fut.packed), []).append((tokens, fut))
+    with torch.inference_mode():
+        for group in batches.values():
+            packed = group[0][1].packed
+            bb, lb = packed.shape
+            want = base(p, blocks, torch.from_numpy(packed).to(dev))
+            mix[f"{bb}x{lb}"] = mix.get(f"{bb}x{lb}", 0) + len(group)
+            for tokens, fut in group:
+                n = len(tokens)
+                if fut.bucket != (bb, lb) or \
+                        not (packed[fut.row, :n] == tokens).all():
+                    raise AssertionError(f"online: a request's packed row "
+                                         f"is not its tokens ({fut.bucket})")
+                if not torch.equal(fut.result(), want[fut.row, :n]):
+                    raise AssertionError(
+                        f"online: a request of length {n} served in row "
+                        f"{fut.row} of bucket {bb}x{lb} differs from the "
+                        "eager forward of that bucket matrix")
+                if bb > 1:
+                    mat = torch.zeros((1, lb), dtype=torch.int64)
+                    mat[0, :n] = torch.from_numpy(tokens)
+                    solo = base(p, blocks, mat.to(dev))[0, :n]
+                    solo_gap = max(solo_gap, serve_gap(
+                        f"online request (length {n}) at bucket {bb}x{lb} "
+                        f"vs solo at 1x{lb}", fut.result(), solo))
+    print(f"online load run: all {len(load.served)} served requests, in "
+          f"{len(batches)} bucket batches {mix} (requests a bucket), "
+          f"bit-equal to the eager forwards of their packed bucket "
+          f"matrices; largest gap to a solo forward {solo_gap:.4e}")
+    served = dict(ok=load.ok, shed=load.shed, error=load.error,
+                  req_per_s=load.throughput_rps, p50_ms=load.p50_us / 1e3,
+                  p99_ms=load.p99_us / 1e3)
+    del rep, srv, load, batches
+    torch.cuda.empty_cache()
+    mb = serve.serve_pruned(cfg, params, prompt, KEEP, microbatch=2)
+    mb_gap = serve_gap("logits microbatch=2 vs unbatched", mb.logits,
+                       unbatched)
+    return dict(launches=launches, wrapper_launches=counts["rowsplit_spmm"],
+                warm_launches=warm, replays=sum(replays.values()),
+                **served, buckets=buckets, mix=mix, solo_gap=solo_gap,
+                microbatch_gap=mb_gap, max_abs=max_abs)
 
 
 def training(cfg, dev, card, reset_counts, read_counts) -> dict:
@@ -1657,7 +1941,7 @@ def main() -> int:
                 max_abs = max_rel = ratio = 0.0
                 cases = 0
                 bodies, rules = {}, set()
-                for n in (1, 32, 128, 160):
+                for n in PARITY_N:
                     for lead in ((), (2,)):
                         rng_seed += 1
                         g = torch.Generator(device=dev).manual_seed(rng_seed)
@@ -1874,14 +2158,30 @@ def main() -> int:
     forwards = 2                      # serve_pruned's cold + warm calls
     serving = {name: 0 for name in KERNELS}
     logits = {}
-    for kname, method in (("rowsplit_spmm", "auto"),
-                          ("merge_spmm", "merge")):
+    # (kernel, --spmm-method, the plans' method): rowgroup runs the
+    # row-split kernel once a length bucket.
+    for kname, method, planned in (("rowsplit_spmm", "auto", "rowsplit"),
+                                   ("merge_spmm", "merge", "merge"),
+                                   ("rowsplit_spmm", "rowgroup",
+                                    "rowgroup")):
         reset_counts()
         rep = serve.serve_pruned(cfg, params, prompt, KEEP,
                                  policy=PlanPolicy(method=method))
         counts = read_counts()
         for name in KERNELS:
             serving[name] += counts[name]
+        blocks = serve.prune_ffn_blocks(params, cfg, KEEP,
+                                        PlanPolicy(method=method))
+        # Launches a forward: one a matrix, one a bucket for rowgroup.
+        per_forward = sum(max(1, len(sl.plan.meta.extra)) if planned ==
+                          "rowgroup" else 1 for blk in blocks
+                          for sl in blk["mlp"].values())
+        if planned == "rowgroup":
+            groups = sorted({(name, sl.plan.meta.extra)
+                             for blk in blocks
+                             for name, sl in blk["mlp"].items()})
+            print(f"serve method=rowgroup: length buckets (m_g, l_g) of the "
+                  f"{len(blocks)} layers' matrices: {groups}")
         used = KERNELS[kname]["method"]
         print(f"serve method={method}: methods {rep.methods}; plan "
               f"{rep.plan_s:.3f} s, cold forward {rep.cold_s * 1e3:.2f} ms, "
@@ -1893,8 +2193,8 @@ def main() -> int:
               f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB held, "
               f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB "
               f"peak (params, cached plans of the run so far); {card}")
-        want = 3 * cfg.num_layers * forwards
-        if set(rep.methods.values()) != {used} or \
+        want = per_forward * forwards
+        if set(rep.methods.values()) != {planned} or \
                 counts[kname] != want or sum(counts.values()) != want:
             raise AssertionError(
                 f"method={method}: expected {want} launches of {kname} "
@@ -1908,9 +2208,7 @@ def main() -> int:
                 not torch.isfinite(lg).all():
             raise AssertionError(f"bad logits: {lg.shape}, finite "
                                  f"{torch.isfinite(lg).all().item()}")
-        logits[kname] = lg
-        blocks = serve.prune_ffn_blocks(params, cfg, KEEP,
-                                        PlanPolicy(method=method))
+        logits[planned] = lg
         fwd = serve.make_pruned_forward(cfg)
 
         def forward():
@@ -1924,20 +2222,22 @@ def main() -> int:
         print(f"profile method={method}: device busy {dev_ms:.3f} ms of the "
               f"{rep.warm_s * 1e3:.2f} ms warm forward (idle share "
               f"{1 - dev_ms / (rep.warm_s * 1e3):.3f}), the "
-              f"{3 * cfg.num_layers} SpMMs {spmm_ms:.3f} ms; {card}")
+              f"{per_forward} SpMM launches {spmm_ms:.3f} ms; {card}")
         del rep, blocks, fwd
-    d = (logits["rowsplit_spmm"] - logits["merge_spmm"]).abs()
-    rel = (torch.linalg.vector_norm(d) / torch.linalg.vector_norm(
-        logits["merge_spmm"])).item()
-    print(f"logits row-split vs merge: max |d| {d.max().item():.4e}, "
-          f"relative Frobenius {rel:.4e}, max |logit| "
-          f"{logits['merge_spmm'].abs().max().item():.3f} (tol max_abs "
-          f"{SERVE_TOL['max_abs']}, rel_fro {SERVE_TOL['rel_fro']})")
-    if not (d.max().item() <= SERVE_TOL["max_abs"]
-            and rel <= SERVE_TOL["rel_fro"]):
-        raise AssertionError("row-split and merge serving disagree")
-    del params, logits
-    torch.cuda.empty_cache()
+    serve_gap("logits row-split vs merge", logits["rowsplit"],
+              logits["merge"])
+    # One length bucket a matrix (the pruned FFN keeps a fixed share of
+    # every row): rowgroup's one ELL block a matrix and its row parts are
+    # row-split's, so the same bits.
+    one_bucket = per_forward == 3 * cfg.num_layers
+    same = torch.equal(logits["rowgroup"], logits["rowsplit"])
+    serve_gap("logits rowgroup vs row-split", logits["rowgroup"],
+              logits["rowsplit"])
+    print(f"logits rowgroup vs row-split bit-identical: {same} (one bucket "
+          f"a matrix: {one_bucket})")
+    if one_bucket and not same:
+        raise AssertionError("rowgroup with one bucket a matrix differs from "
+                             "row-split")
 
     # The same small model, f32 compute, on the card (kernels) and on the
     # CPU (plain versions): the port's whole path against its reference.
@@ -1948,7 +2248,7 @@ def main() -> int:
     tokens = torch.randint(0, scfg.vocab_size, (2, 16),
                            generator=torch.Generator().manual_seed(3))
     fwd = serve.make_pruned_forward(scfg)
-    for method in ("rowsplit", "merge"):
+    for method in ("rowsplit", "merge", "rowgroup"):
         pol = PlanPolicy(method=method)
         with torch.no_grad():
             want = fwd(sp_cpu, serve.prune_ffn_blocks(sp_cpu, scfg, KEEP,
@@ -1960,6 +2260,16 @@ def main() -> int:
               f"(tol rtol {SMOKE_TOL['rtol']} atol {SMOKE_TOL['atol']})")
         torch.testing.assert_close(got.cpu(), want, **SMOKE_TOL)
     done("serving", t0)
+
+    # ----------------------------------------------------------- online --
+    t0 = phase("online")
+    served_online = online(cfg, params, prompt, logits["rowsplit"], dev,
+                           card, reset_counts, read_counts)
+    worst["rowsplit_spmm"] = max(worst["rowsplit_spmm"],
+                                 served_online["max_abs"])
+    del params, logits
+    torch.cuda.empty_cache()
+    done("online", t0)
 
     # --------------------------------------------------------- training --
     t0 = phase("training")
@@ -1984,6 +2294,8 @@ def main() -> int:
     for kname, kspec in KERNELS.items():
         acc = per_layer[kname]
         launches = {"serving": serving[kname],
+                    "online": served_online["launches"]
+                    if kname == "rowsplit_spmm" else 0,
                     "training": train.get(kname, 0),
                     "attention": attn["launches"]
                     if kname == "flash_attention" else 0,
@@ -1999,6 +2311,8 @@ def main() -> int:
         if kname == "merge_spmm":
             row["backward_dB"] = backward["merge_dB"]
             row["power_law"] = power_law
+        if kname == "rowsplit_spmm":
+            row["online"] = served_online
         if kname == "moe_gemm":
             row["body"] = acc["body"]
         if kname == "flash_attention":
@@ -2018,12 +2332,16 @@ def main() -> int:
           "dispatch (each backend alone in sdpa_backends_ms, null where "
           "it declines), exp_limit_ms the softmax's exps "
           "at 16 a clock an SM; launches: the serving runs "
-          f"({forwards} forwards of each method), the training runs "
+          f"({forwards} forwards of each of three methods: rowgroup runs "
+          "row-split's kernel once a length bucket), the online run "
+          "(each bucket's warm eager call, plus each graph's replays times "
+          "one eager forward's launches at its bucket; a capture records "
+          "its launches and runs none), the training runs "
           f"({TRAIN_STEPS} steps of each method), the attention phase's "
           f"main-path run ({2 * len(FLASH_MODEL_SHAPES)} ops.flash_attention "
           f"calls) and the OLMoE generate run ({GEN_LEN + 1} forwards); "
-          "max_abs_err: worst parity case, forward, gradient, the MoE "
-          "layers and the attention layers)")
+          "max_abs_err: worst parity case, forward, gradient, the online "
+          "buckets' widths, the MoE layers and the attention layers)")
     print(json.dumps({"kernels": rows}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,7 @@ and differentiable.
     C = execute_plan(plan, A.vals, B)          # the explicit-plan core
     C = execute_plan(plan, A.vals, Bs)         # Bs (batch, k, n): one plan,
                                                # many problems, one launch
+    C = spmm(A, B, plan="inline")              # plan per call, no cache
 
 Execution is differentiable in ``vals``, ``B``, ``bias`` and ``residual``
 through a ``torch.autograd.Function`` (the reference's custom VJP):
@@ -264,24 +265,64 @@ def _check_plan_overrides(plan: SpmmPlan, policy: PlanPolicy) -> None:
 
 def spmm(a: CSR, b: torch.Tensor, policy: PlanPolicy | None = None,
          exec: ExecutionConfig | None = None, *,
-         plan: SpmmPlan | None = None, bias: torch.Tensor | None = None,
+         plan: SpmmPlan | str | None = None,
+         bias: torch.Tensor | None = None,
          residual: torch.Tensor | None = None) -> torch.Tensor:
     """Sparse(CSR) × dense = dense.  ``b`` is (..., k, n); returns
     (..., m, n).
 
     ``policy`` holds every pattern-static decision and ``exec`` the
-    per-call backend knobs.  With ``plan`` given it is executed (an
-    explicit ``policy`` must agree with it); otherwise the pattern's plan
-    comes from the engine cache, so repeated calls with the same pattern
-    never replan.  (The reference's plan-per-call ``plan="inline"`` regime
-    is not ported yet.)
+    per-call backend knobs.  Dispatch on ``plan``:
+
+    * an ``SpmmPlan`` -- execute it (an explicit ``policy`` must agree
+      with it);
+    * ``None`` (default) -- the pattern's plan from the engine cache, then
+      execute it, so repeated calls with the same pattern never replan;
+    * ``"inline"`` -- the paper's per-call regime: the method's ``inline``
+      form builds its structure and executes it with no cache, every
+      call.  B must be 2-D.  The method and its parameters resolve through
+      the same ``PlanPolicy.resolve`` as the planned path, so the two
+      regimes pick the same kernel for a matrix.  The epilogue and the
+      dtype contract are applied after the call: the same math as the
+      fused paths, none of the fusion.
     """
     policy = policy if policy is not None else PlanPolicy()
-    if plan is None:
+    if isinstance(plan, SpmmPlan):
+        _check_plan_overrides(plan, policy)
+    elif plan is None:
         from repro_torch.engine import get_plan
         plan = get_plan(a, policy)
-    elif isinstance(plan, SpmmPlan):
-        _check_plan_overrides(plan, policy)
+    elif plan == "inline":
+        return _spmm_inline(a, b, policy, exec, bias, residual)
     else:
-        raise ValueError(f"plan must be an SpmmPlan or None; got {plan!r}")
+        raise ValueError(f"plan must be an SpmmPlan, None or 'inline'; "
+                         f"got {plan!r}")
     return execute_plan(plan, a.vals, b, exec, bias=bias, residual=residual)
+
+
+def _spmm_inline(a: CSR, b, policy: PlanPolicy, exec, bias, residual):
+    """``spmm(plan="inline")``: resolve, plan and execute in one call."""
+    if b.dim() != 2:
+        raise ValueError(
+            "the inline (plan-per-call) spmm path takes a 2-D B; batched "
+            f"B {tuple(b.shape)} needs a prebuilt plan -- "
+            "repro_torch.engine.get_plan(a) -- whose execution folds the "
+            "batch into the kernel launch.")
+    r = policy.resolve(a)
+    spec = _registry().get_method(r.method)
+    if spec.inline is None:
+        raise ValueError(
+            f"SpMM method {r.method!r} has no inline (plan-per-call) form; "
+            "build a plan instead: repro_torch.engine.get_plan(a, policy)")
+    exec = _resolve_exec("spmm", a.m, a.vals, b,
+                         exec if exec is not None else ExecutionConfig(),
+                         bias, residual)
+    out = spec.inline(a, b, t=r.t, tl=r.tl, l_pad=r.l_pad, extra=r.extra,
+                      impl=exec.impl)
+    ep = exec.epilogue
+    if ep is not None:
+        acc = torch_dtype(exec.acc_dtype)
+        out = apply_epilogue(out.to(acc), ep,
+                             bias.to(acc)[:, None] if ep.bias else None,
+                             residual if ep.residual else None)
+    return out.to(torch_dtype(exec.out_dtype))

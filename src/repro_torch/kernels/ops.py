@@ -1,6 +1,7 @@
 """Plan-execute ops: shapes and dtypes around the kernels, and dispatch.
 
-``merge_execute``/``rowsplit_execute`` take a dense operand with any
+``merge_execute``/``rowsplit_execute`` execute a prebuilt structure; they
+take a dense operand with any
 leading batch dims — ``b (..., k, n)`` folds into the kernels' batch axis,
 one launch for the whole stack — resolve the accumulator/output dtypes,
 keep the degenerate early-outs (m == 0, k == 0, an empty batch) that still
@@ -8,7 +9,10 @@ apply the epilogue to C = 0, and dispatch by ``impl``: ``"cuda"`` launches
 the hand-written kernel (CUDA tensors only, no fallback), ``"torch"`` runs
 its plain version from ``ref.py``.  The kernels mask the ragged n edge
 themselves and write (batch, m, n) directly, so nothing is padded here.
-``sddmm`` is the backward's values cotangent, dispatched the same way.
+``merge_spmm``/``rowsplit_spmm`` are the plan-per-call forms (the
+registry's ``inline`` hooks): each builds its structure from the CSR and
+executes it, caching nothing.  ``sddmm`` is the backward's values
+cotangent, dispatched the same way.
 ``moe_group_gemm`` is the MoE block's grouped expert GEMM, and
 ``flash_attention`` causal GQA attention in the reference entry point's
 (b, s, h, dh) layout; both dispatch on the tensor's device when ``impl`` is
@@ -114,6 +118,23 @@ def rowsplit_execute(structure: dict, vals: torch.Tensor, b: torch.Tensor,
     return _execute(_rowsplit.rowsplit_spmm_cuda, _ref.rowsplit_execute_ref,
                     structure, vals, b, m, impl, epilogue, bias, residual,
                     acc_dtype, out_dtype)
+
+
+def merge_spmm(a, b: torch.Tensor, *, t: int | None = None, impl: str):
+    """Merge-based SpMM planned per call: C = A @ B with equal-nonzero
+    chunks of ``t`` (default ``DEFAULT_T``); ``b (..., k, n)``."""
+    t = _merge.DEFAULT_T if t is None else t
+    structure = _merge.plan_merge_structure(a, t=t)
+    return merge_execute(structure, a.vals, b, m=a.m, impl=impl)
+
+
+def rowsplit_spmm(a, b: torch.Tensor, *, l_pad: int, tl: int, impl: str):
+    """Row-split SpMM planned per call: C = A @ B over an ELL layout of
+    ``l_pad`` slots rounded up to ``tl``, both as the method's
+    ``resolve_params`` resolved and checked them (``l_pad`` at least the
+    longest row)."""
+    structure = _rowsplit.plan_rowsplit_structure(a, l_pad=l_pad, tl=tl)
+    return rowsplit_execute(structure, a.vals, b, m=a.m, impl=impl)
 
 
 def sddmm(rows: torch.Tensor, cols: torch.Tensor, valid: torch.Tensor,

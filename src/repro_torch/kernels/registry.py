@@ -8,9 +8,11 @@ and the executor need; ``core.config.PlanPolicy.resolve``,
 through this table.
 
 The spec keeps the reference's nine hooks.  This port fills the ones the
-planned forward path uses; ``inline`` (the plan-per-call form),
-``tune_candidates`` (the autotuner) and ``traffic`` (the static launch
-model) are None until the slices that port those consumers.
+planned and the plan-per-call (``inline``) paths use; ``tune_candidates``
+(the autotuner) and ``traffic`` (the static launch model) are None until
+the slices that port those consumers.  The built-in merge and row-split
+methods register here; the row-grouped method registers from
+``rowgroup_spmm``, which ``repro_torch.kernels`` imports.
 """
 from __future__ import annotations
 
@@ -37,8 +39,11 @@ class MethodSpec:
       lowest-ranked method wins ``method="auto"`` (ties go to the
       later-registered spec, so the built-in pair reproduces the paper's
       rule ``d >= threshold -> rowsplit``).
-    * ``inline``, ``tune_candidates``, ``traffic``: the reference's
-      plan-per-call, autotuner and launch-model hooks.
+    * ``inline(a, b, *, t, tl, l_pad, extra, impl) -> C``: the
+      plan-per-call form, ``b (k, n) -> (m, n)``, structure built and
+      executed with no cache (``spmm(plan="inline")``).
+    * ``tune_candidates``, ``traffic``: the reference's autotuner and
+      launch-model hooks.
     """
 
     name: str
@@ -114,6 +119,10 @@ def _merge_execute(meta, fwd, vals, b, *, impl, epilogue=None, bias=None,
                               out_dtype=out_dtype)
 
 
+def _merge_inline(a, b, *, t, tl, l_pad, extra, impl):
+    return _ops.merge_spmm(a, b, t=t, impl=impl)
+
+
 def _rowsplit_resolve(a, *, t, tl, l_pad):
     t = _merge.DEFAULT_T if t is None else t
     tl = _rowsplit.DEFAULT_TL if tl is None else tl
@@ -141,13 +150,17 @@ def _rowsplit_execute(meta, fwd, vals, b, *, impl, epilogue=None,
                                  out_dtype=out_dtype)
 
 
+def _rowsplit_inline(a, b, *, t, tl, l_pad, extra, impl):
+    return _ops.rowsplit_spmm(a, b, l_pad=l_pad, tl=tl, impl=impl)
+
+
 register_method(MethodSpec(
     name="merge",
     description="merge-based nonzero splitting (paper §4.2): equal "
                 "nonzeroes per chunk, broken at output row tiles",
     build_structure=lambda a, meta: _merge.plan_merge_structure(a, t=meta.t),
     execute=_merge_execute,
-    inline=None,
+    inline=_merge_inline,
     resolve_params=_merge_resolve,
     tune_candidates=None,
     # The paper's §5.4 rule as a cost: d below the threshold prefers merge.
@@ -161,7 +174,7 @@ register_method(MethodSpec(
     build_structure=lambda a, meta: _rowsplit.plan_rowsplit_structure(
         a, l_pad=meta.l_pad, tl=meta.tl),
     execute=_rowsplit_execute,
-    inline=None,
+    inline=_rowsplit_inline,
     resolve_params=_rowsplit_resolve,
     tune_candidates=None,
     heuristic_rank=lambda a, h: h.threshold - h.mean_row_length(a),

@@ -1,11 +1,14 @@
-"""Serving entry point: prefill + batched greedy decode, or pruned-FFN
-prefill scoring through the SpMM engine.
+"""Serving entry point: prefill + batched greedy decode, pruned-FFN
+prefill scoring through the SpMM engine, or online serving of ragged
+requests over shape-bucket programs.
 
     python -m repro_torch.launch.serve --arch olmoe-1b-7b --gen 16
     python -m repro_torch.launch.serve --arch olmoe-1b-7b --smoke --gen 4 \
         --device cpu
     python -m repro_torch.launch.serve --prune-ffn 0.25
     python -m repro_torch.launch.serve --prune-ffn 0.25 --spmm-method merge
+    python -m repro_torch.launch.serve --prune-ffn 0.25 --microbatch 2
+    python -m repro_torch.launch.serve --prune-ffn 0.25 --serve
     python -m repro_torch.launch.serve --smoke --prune-ffn 0.25 --device cpu
 
 Without ``--prune-ffn``, ``generate`` prefills the prompt into KV caches
@@ -14,8 +17,11 @@ through the grouped GEMM kernel on the card.  With ``--prune-ffn``, every
 FFN matrix is magnitude-pruned to CSR once, its plan built once through
 the engine cache, and the forward then runs every FFN matmul as a planned
 SpMM — the hand-written CUDA kernels on the card, their plain versions on
-the CPU.  Online serving, microbatching, device meshes and TuneDB-driven
-plans are later slices of the port; the CLI rejects their flags.
+the CPU.  ``--serve`` serves a Poisson stream of ragged requests through
+``repro_torch.serving.Server``: one program a ``(batch, length)`` bucket,
+a CUDA graph on the card, all built at warmup.  Device meshes, TuneDB-driven
+plans and trace export are later slices of the port; the CLI rejects their
+flags.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ import time
 
 import torch
 
+from repro_torch import obs
 from repro_torch.configs import ARCHS, get_config, get_smoke_config
 from repro_torch.core import PlanPolicy
 from repro_torch.engine import cache_stats
@@ -146,10 +153,13 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def serve_pruned(cfg, params, prompt, keep: float, *,
+def serve_pruned(cfg, params, prompt, keep: float, *, microbatch: int = 0,
                  policy=None) -> ServeReport:
     """Prune + plan every FFN, then score ``prompt`` twice (cold, warm);
-    raises if the forward built a plan."""
+    raises if the forward built a plan.  ``microbatch`` > 0 scores the
+    prompt rows in fixed-size slices (``steps.microbatched``): one shape
+    of every kernel launch serves any batch, its batch axis folded into
+    the SpMM launches."""
     check_prunable(cfg)
     device = prompt.device
     _sync(device)
@@ -163,6 +173,8 @@ def serve_pruned(cfg, params, prompt, keep: float, *,
           f"in {t_plan:.2f}s; methods={methods}; "
           f"plan cache: {stats.misses} built, {stats.hits} reused")
     fwd = make_pruned_forward(cfg)
+    if microbatch:
+        fwd = R.microbatched(fwd, microbatch, argnums=(2,))
     with torch.no_grad():
         t1 = time.perf_counter()
         fwd(params, blocks, prompt)
@@ -174,17 +186,98 @@ def serve_pruned(cfg, params, prompt, keep: float, *,
         t_warm = time.perf_counter() - t2
     replans = _check_replans(stats, cache_stats())
     tok_s = prompt.numel() / t_warm
-    print(f"[serve] cold forward {t_cold * 1e3:.1f}ms; warm pruned forward "
-          f"{t_warm * 1e3:.1f}ms ({tok_s:.0f} tok/s); plans built during "
-          f"serving: {replans}")
+    mb = f" (microbatch={microbatch})" if microbatch else ""
+    print(f"[serve] cold forward {t_cold * 1e3:.1f}ms; warm pruned "
+          f"forward{mb} {t_warm * 1e3:.1f}ms ({tok_s:.0f} tok/s); plans "
+          f"built during serving: {replans}")
     return ServeReport(logits, methods, t_plan, t_cold, t_warm, tok_s,
                        replans)
 
 
+@dataclasses.dataclass
+class OnlineReport:
+    """What one ``serve_online`` run measured (host clock)."""
+
+    load: object                  # serving.loadgen.LoadReport
+    server: object                # the stopped serving.Server
+    warmup_s: float
+    rate_rps: float
+    replans: int
+    recompiles: int
+
+
+def serve_online(cfg, params, keep: float, *, batch: int, prompt_len: int,
+                 requests: int, rate: float = 0.0, deadline_ms: float = 0.0,
+                 queue_depth: int = 64, seed: int = 0,
+                 policy=None, keep_served: bool = False) -> OnlineReport:
+    """``--serve``: online continuous batching over the pruned-FFN forward.
+
+    Ragged Poisson arrivals pack into ``(batch, length)`` bucket programs
+    (``repro_torch.serving``; a CUDA graph each on the card) built at
+    warmup, lengths from 8 (or ``prompt_len``) doubling to ``prompt_len``,
+    batches from 1 doubling to ``batch``.  ``rate`` 0 offers 4 requests in
+    the time of one solo call at the longest bucket.  After warmup the run
+    must neither replan nor build a program: both raise.
+    ``keep_served`` keeps the served requests' tokens and futures in
+    ``load.served``.
+    """
+    from repro_torch import serving
+    from repro_torch.serving import loadgen
+
+    check_prunable(cfg)
+    blocks = prune_ffn_blocks(params, cfg, keep, policy=policy)
+    base = make_pruned_forward(cfg)
+
+    def forward(state, tokens):
+        p, blk = state
+        return base(p, blk, tokens)
+
+    ladder = serving.BucketLadder.from_max(
+        prompt_len, max(batch, 1), min_len=min(8, prompt_len))
+    server = serving.Server(
+        forward, (params, blocks), ladder, queue_depth=queue_depth,
+        default_deadline_s=deadline_ms / 1e3 if deadline_ms else None,
+        name="serve.online")
+    t0 = time.perf_counter()
+    server.warmup()
+    warm_s = time.perf_counter() - t0
+    print(f"[serve] built {len(ladder.shapes())} bucket programs "
+          f"(lengths={ladder.lengths} batches={ladder.batches}; "
+          f"{'CUDA graphs' if server.device.type == 'cuda' else 'eager'}) "
+          f"in {warm_s:.2f}s")
+    plan_stats = cache_stats()
+    if rate <= 0:
+        solo = min(server.probe(ladder.batches[0], ladder.max_len)
+                   for _ in range(3))
+        rate = 4.0 / solo
+        print(f"[serve] auto rate: solo call {solo * 1e3:.2f}ms -> offered "
+              f"{rate:.1f} req/s")
+    sched = loadgen.poisson_schedule(
+        requests, rate, (max(1, prompt_len // 4), prompt_len), seed=seed)
+    server.start()
+    try:
+        load = loadgen.run_load(server, sched, vocab=cfg.vocab_size,
+                                seed=seed, keep=keep_served)
+    finally:
+        server.stop()
+    replans = _check_replans(plan_stats, cache_stats())
+    rc = server.recompiles()
+    if rc:
+        raise RuntimeError(
+            f"online serving built {rc} program(s) after warmup -- the "
+            "bucket ladder must cover every served shape")
+    print(f"[serve] online: {load.ok}/{load.n} ok ({load.shed} shed, "
+          f"{load.error} error) in {load.wall_s:.2f}s = "
+          f"{load.throughput_rps:.1f} req/s; p50 {load.p50_us / 1e3:.2f}ms "
+          f"p99 {load.p99_us / 1e3:.2f}ms; recompiles after warmup: {rc}; "
+          f"plans built during serving: {replans}")
+    return OnlineReport(load, server, warm_s, rate, replans, rc)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
-        description="greedy decode, or pruned-FFN serving through the "
-        "SpMM engine")
+        description="greedy decode, pruned-FFN scoring through the SpMM "
+        "engine, or online serving of ragged requests")
     ap.add_argument("--arch", choices=ARCHS, default="llama3.2-1b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
@@ -201,11 +294,35 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; 'cpu' runs the "
                     "kernels' plain versions)")
+    ap.add_argument("--microbatch", type=int, default=0, metavar="MB",
+                    help="score pruned-FFN requests in fixed-size "
+                    "microbatches (a ragged tail is padded): one shape of "
+                    "every launch, the batch axis folded into the SpMM "
+                    "launches")
+    ap.add_argument("--serve", action="store_true",
+                    help="online mode: continuous batching of ragged "
+                    "Poisson requests over shape-bucket programs (CUDA "
+                    "graphs on the card; requires --prune-ffn); --batch and "
+                    "--prompt-len bound the bucket ladder")
+    ap.add_argument("--serve-requests", type=int, default=24, metavar="N",
+                    help="requests in the Poisson load")
+    ap.add_argument("--serve-rate", type=float, default=0.0, metavar="RPS",
+                    help="offered load (0 = auto: 4x the measured solo-call "
+                    "capacity)")
+    ap.add_argument("--serve-deadline-ms", type=float, default=0.0,
+                    metavar="MS", help="per-request deadline; expired "
+                    "requests are shed, not served (0 = none)")
+    ap.add_argument("--serve-queue-depth", type=int, default=64, metavar="N",
+                    help="admission queue bound; submits beyond it are shed "
+                    "at once")
+    ap.add_argument("--metrics-out", default="", metavar="PATH",
+                    help="write a JSON snapshot of the metrics registry "
+                    "(serving counters and latency histograms, program "
+                    "cache counters) here on exit")
     # The reference's flags of paths this port has not reached yet.
-    later = {"--serve": "online serving",
-             "--microbatch": "microbatched scoring",
-             "--mesh": "sharded plans",
-             "--tunedb": "TuneDB-driven plans"}
+    later = {"--mesh": "sharded plans",
+             "--tunedb": "TuneDB-driven plans",
+             "--trace-out": "trace export"}
     for flag in later:
         ap.add_argument(flag, nargs="?", const=True, default=None,
                         help=argparse.SUPPRESS)
@@ -214,11 +331,19 @@ def main(argv=None):
              if getattr(args, f.lstrip("-").replace("-", "_")) is not None]
     if given:
         ap.error(", ".join(f"{f} ({later[f]})" for f in given)
-                 + ": not ported to repro_torch yet; this slice serves "
-                 "greedy decode and pruned-FFN prefill only")
-    if args.prune_ffn <= 0.0 and args.spmm_method != "auto":
-        ap.error("--spmm-method: no effect without --prune-ffn KEEP (the "
-                 "dense decode path ignores it); add --prune-ffn or drop it")
+                 + ": not ported to repro_torch yet")
+    if args.prune_ffn <= 0.0:
+        # These flags only shape the pruned-FFN path; silently ignoring
+        # them hides typos like a forgotten --prune-ffn.
+        dead = [fl for fl, on in (
+            ("--serve", args.serve),
+            ("--microbatch", args.microbatch != 0),
+            ("--spmm-method", args.spmm_method != "auto"),
+        ) if on]
+        if dead:
+            ap.error(f"{', '.join(dead)}: no effect without --prune-ffn "
+                     "KEEP (the dense decode path ignores these flags); add "
+                     "--prune-ffn or drop them")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda, but torch sees no CUDA device; "
@@ -233,10 +358,20 @@ def main(argv=None):
     prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            generator=gen, device=device)
     if args.prune_ffn > 0.0:
-        rep = serve_pruned(cfg, params, prompt, args.prune_ffn,
-                           policy=PlanPolicy(method=args.spmm_method))
-        print(f"pruned-FFN logits {tuple(rep.logits.shape)}; argmax@last "
-              f"{rep.logits[:, -1].argmax(-1).tolist()}")
+        policy = PlanPolicy(method=args.spmm_method)
+        if args.serve:
+            serve_online(cfg, params, args.prune_ffn, batch=args.batch,
+                         prompt_len=args.prompt_len,
+                         requests=args.serve_requests, rate=args.serve_rate,
+                         deadline_ms=args.serve_deadline_ms,
+                         queue_depth=args.serve_queue_depth, seed=args.seed,
+                         policy=policy)
+        else:
+            rep = serve_pruned(cfg, params, prompt, args.prune_ffn,
+                               microbatch=args.microbatch, policy=policy)
+            print(f"pruned-FFN logits {tuple(rep.logits.shape)}; "
+                  f"argmax@last {rep.logits[:, -1].argmax(-1).tolist()}")
+        _export_metrics(args)
         return 0
     _sync(device)
     t0 = time.perf_counter()
@@ -246,7 +381,13 @@ def main(argv=None):
     print(f"generated {tuple(out.shape)} in {dt:.2f}s "
           f"({args.batch * args.gen / dt:.1f} tok/s)")
     print(out[0, -args.gen:].tolist())
+    _export_metrics(args)
     return 0
+
+
+def _export_metrics(args) -> None:
+    if args.metrics_out:
+        print(f"[serve] metrics: {obs.dump(args.metrics_out)}")
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
-"""Step functions: the serving steps (prefill, decode) and sparse
-fine-tuning, SGD on the CSR values of a pruned MLP.
+"""Step functions: the serving steps (prefill, decode), microbatched
+scoring, and sparse fine-tuning, SGD on the CSR values of a pruned MLP.
 
     prefill = make_prefill_step(cfg, cache_len=s + gen + 8)
     decode = make_decode_step(cfg)
@@ -47,6 +47,68 @@ def make_decode_step(cfg):
         return M.decode_step(params, cfg, caches, batch, pos)
 
     return decode_step
+
+
+def _tree_map(fn, *trees):
+    """``fn`` over matching tensor leaves of dicts, lists and tuples."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(_tree_map(fn, *xs) for xs in zip(*trees))
+    return fn(*trees)
+
+
+def microbatched(fn, microbatch: int, *, argnums=(0,), pad=True):
+    """Run ``fn`` over fixed-size slices of the selected args' leading axis.
+
+    ``fn`` is called once per ``microbatch``-sized slice of every arg in
+    ``argnums`` (other args pass through whole), and the per-slice outputs
+    (a tensor, or dicts, lists and tuples of them) are concatenated along
+    axis 0.  Every slice has the same shape, so one shape -- one bucket
+    program, one set of kernel launch shapes -- serves any request batch:
+    a ragged tail (``total % microbatch != 0``, or ``total`` smaller than
+    one microbatch) is padded up to the microbatch by repeating its last
+    row, and the padded rows are trimmed from the outputs.  ``pad=False``
+    raises on a ragged total instead (for an ``fn`` that mixes rows, such
+    as a batch-mean loss, where padding would skew the result).
+    """
+    if microbatch <= 0:
+        raise ValueError(f"microbatch must be positive, got {microbatch}")
+
+    def run(*args):
+        sizes = {args[i].shape[0] for i in argnums}
+        if len(sizes) != 1:
+            raise ValueError(
+                f"microbatched args disagree on the leading axis: {sizes}")
+        (total,) = sizes
+        if total == 0:
+            raise ValueError("microbatched got an empty batch")
+        rem = total % microbatch
+        if rem and not pad:
+            raise ValueError(
+                f"batch {total} does not divide into microbatches of "
+                f"{microbatch}; pad the batch or change --microbatch")
+        outs = []
+        for s in range(0, total, microbatch):
+            n = min(microbatch, total - s)
+
+            def cut(a):
+                sl = a[s:s + n]
+                if n < microbatch:
+                    fill = sl[-1:].expand((microbatch - n,) + sl.shape[1:])
+                    sl = torch.cat([sl, fill], dim=0)
+                return sl
+
+            sliced = [cut(a) if i in argnums else a
+                      for i, a in enumerate(args)]
+            outs.append(fn(*sliced))
+        out = _tree_map(lambda *xs: torch.cat(xs, dim=0), *outs)
+        if rem:
+            out = _tree_map(lambda x: x[:total], out)
+        return out
+
+    return run
 
 
 def ensure_spmm_plans(tree, policy=None, mesh=None):

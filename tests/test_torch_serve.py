@@ -1,7 +1,9 @@
 """The whole slice — pruned-FFN serving of the smoke Llama config — in the
 port against the JAX reference: the reference's params carried across by
 ``repro_torch.convert``, both packages prune and plan, and the logits of
-``make_pruned_forward`` are compared for both SpMM methods."""
+``make_pruned_forward`` are compared for every SpMM method; plus the
+serve CLI on the CPU: pruned scoring, microbatched scoring and online
+serving (``--serve``)."""
 import dataclasses
 
 import pytest
@@ -60,7 +62,8 @@ def _logits_both(compute_dtype, method, batch=2, seq=8):
     return np.asarray(want), got.numpy()
 
 
-@pytest.mark.parametrize("method", ["auto", "merge", "rowsplit"])
+@pytest.mark.parametrize("method", ["auto", "merge", "rowsplit",
+                                    "rowgroup"])
 def test_pruned_forward_matches_reference_f32(method):
     """f32 compute: the two packages differ only in summation order, so
     the logits (|logits| ~ 1) agree to 1e-4."""
@@ -69,7 +72,7 @@ def test_pruned_forward_matches_reference_f32(method):
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("method", ["merge", "rowsplit"])
+@pytest.mark.parametrize("method", ["merge", "rowsplit", "rowgroup"])
 def test_pruned_forward_matches_reference_bf16(method):
     """The default bf16 compute rounds every activation to 8 bits of
     mantissa, and the frameworks round at different points (bf16 matmul
@@ -94,7 +97,7 @@ def test_serve_pruned_builds_no_plan_while_serving(capsys):
     assert "plans built during serving: 0" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("method", ["auto", "merge"])
+@pytest.mark.parametrize("method", ["auto", "merge", "rowgroup"])
 def test_main_smoke_on_cpu(method, capsys):
     argv = ["--smoke", "--prune-ffn", "0.25", "--device", "cpu",
             "--batch", "2", "--prompt-len", "8", "--spmm-method", method]
@@ -109,13 +112,70 @@ def test_main_default_args_smoke_on_cpu():
 
 @pytest.mark.parametrize("argv", [
     ["--smoke", "--device", "cpu", "--tunedb", "tune.json"],
-    ["--smoke", "--device", "cpu", "--prune-ffn", "0.25", "--microbatch",
-     "2"],
-    ["--smoke", "--device", "cpu", "--prune-ffn", "0.25", "--serve"],
     ["--smoke", "--device", "cpu", "--prune-ffn", "0.25", "--mesh", "2"],
+    ["--smoke", "--device", "cpu", "--prune-ffn", "0.25", "--trace-out",
+     "trace.json"],
 ])
 def test_main_rejects_paths_not_ported(argv, capsys):
     with pytest.raises(SystemExit) as e:
         serve.main(argv)
     assert e.value.code == 2
     assert "not ported" in capsys.readouterr().err
+
+
+def test_main_serve_on_cpu(capsys, tmp_path):
+    """``--serve`` on the CPU: every request served, no program built and
+    no plan built after warmup, and the metrics dumped."""
+    out = tmp_path / "metrics.json"
+    assert serve.main(["--smoke", "--prune-ffn", "0.25", "--serve",
+                       "--device", "cpu", "--serve-requests", "12",
+                       "--metrics-out", str(out)]) == 0
+    text = capsys.readouterr().out
+    assert "12/12 ok (0 shed, 0 error)" in text
+    assert "recompiles after warmup: 0" in text
+    assert "plans built during serving: 0" in text
+    import json
+    metrics = json.loads(out.read_text())["metrics"]
+    served = {tuple(v["labels"].items()): v["value"]
+              for v in metrics["serve_requests_total"]["values"]}
+    assert served[(("outcome", "ok"),)] >= 12
+
+
+def _smoke_f32():
+    from repro_torch.models import model
+    _, tcfg = _configs("float32")
+    params = model.init_params(tcfg, 0, device="cpu")
+    prompt = torch.from_numpy(np.random.default_rng(2).integers(
+        0, tcfg.vocab_size, (4, 16)))
+    return tcfg, params, prompt
+
+
+def test_microbatch_matches_unbatched_logits(capsys):
+    """``serve_pruned(..., microbatch=2)`` scores 4 rows as two slices of
+    2: each row's logits as unbatched, to f32 summation order (the SpMMs'
+    B is half as wide)."""
+    tcfg, params, prompt = _smoke_f32()
+    want = serve.serve_pruned(tcfg, params, prompt, KEEP).logits
+    rep = serve.serve_pruned(tcfg, params, prompt, KEEP, microbatch=2)
+    assert rep.replans == 0 and rep.logits.shape == want.shape
+    torch.testing.assert_close(rep.logits, want, rtol=1e-5, atol=1e-5)
+    assert "(microbatch=2)" in capsys.readouterr().out
+    # A ragged tail pads and trims: 3 rows at microbatch 2.
+    rep3 = serve.serve_pruned(tcfg, params, prompt[:3], KEEP, microbatch=2)
+    torch.testing.assert_close(rep3.logits, want[:3], rtol=1e-5, atol=1e-5)
+
+
+def test_rowgroup_logits_equal_rowsplit():
+    """The pruned FFN keeps a fixed share of every row, so each matrix is
+    one rowgroup bucket whose ELL block is row-split's: the same bits."""
+    tcfg, params, prompt = _smoke_f32()
+    want = serve.serve_pruned(tcfg, params, prompt, KEEP,
+                              policy=PlanPolicy(method="rowsplit"))
+    got = serve.serve_pruned(tcfg, params, prompt, KEEP,
+                             policy=PlanPolicy(method="rowgroup"))
+    assert set(got.methods.values()) == {"rowgroup"}
+    for blk in serve.prune_ffn_blocks(params, tcfg, KEEP,
+                                      PlanPolicy(method="rowgroup")):
+        for sl in blk["mlp"].values():
+            assert len(sl.plan.meta.extra) == 1     # one bucket a matrix
+    assert torch.equal(got.logits, want.logits)

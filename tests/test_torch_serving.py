@@ -1,0 +1,594 @@
+"""Online serving in the port: bucket packer, continuous batcher, admission
+control, program cache, microbatching and the Poisson load generator --
+the twin of tests/test_serving.py, on the CPU, where each bucket's program
+is the eager forward (``engine.programs.EagerProgram``; the CUDA graphs
+are in tests/test_torch_programs.py and chip_smoke.py's online phase).
+
+Beside the twins: the ladder, ``pack``, ``poisson_schedule`` and
+``make_tokens`` equal the reference's, and the port's server on the smoke
+Llama pruned forward agrees with the reference's ``make_pruned_forward``
+at the same bucket (f32, 1e-4, as tests/test_torch_serve.py).
+
+Bit-identity on the CPU: a served row equals the eager forward of the
+same packed token matrix bit for bit.  Against a solo forward at batch
+bucket 1 it holds to f32's 2e-5 only: the SpMM's plain version sums in an
+order that follows the number of B's columns (batch x length), and here
+the gap is last-bit (7.5e-9 on this file's scorer).
+
+Every future, join and wait has a timeout: nothing here can hang.
+"""
+import threading
+from types import SimpleNamespace
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.configs import get_smoke_config as jget_smoke  # noqa: E402
+from repro.core import PlanPolicy as JPlanPolicy  # noqa: E402
+from repro.launch import serve as jserve  # noqa: E402
+from repro.models import model as jmodel  # noqa: E402
+from repro.serving import BucketLadder as JBucketLadder  # noqa: E402
+from repro.serving import loadgen as jloadgen  # noqa: E402
+from repro.serving import pack as jpack  # noqa: E402
+from repro_torch import convert, obs  # noqa: E402
+from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.core import ExecutionConfig  # noqa: E402
+from repro_torch.engine import ProgramCache  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import sparse as S  # noqa: E402
+from repro_torch.runtime import steps as R  # noqa: E402
+from repro_torch.serving import (BucketLadder, RequestShed,  # noqa: E402
+                                 Server, ServerClosed, loadgen, pack)
+
+EC = ExecutionConfig
+T = 120                          # seconds: every future, join and wait
+
+
+# ------------------------------------------------- microbatched ragged ---
+
+
+def _counted(calls):
+    def fn(x):
+        calls.append(tuple(x.shape))
+        return {"out": x * 2.0, "sum": x.sum(dim=1)}
+
+    return fn
+
+
+def test_microbatched_ragged_tail():
+    """5 rows / microbatch 2: the tail of 1 pads to 2, outputs trim to 5."""
+    calls = []
+    run = R.microbatched(_counted(calls), 2)
+    x = torch.arange(10.0).reshape(5, 2)
+    out = run(x)
+    assert torch.equal(out["out"], x * 2.0)
+    assert torch.equal(out["sum"], x.sum(dim=1))
+    assert set(calls) == {(2, 2)}, "padding must not add a second shape"
+
+
+def test_microbatched_total_smaller_than_microbatch():
+    calls = []
+    run = R.microbatched(_counted(calls), 4)
+    out = run(torch.ones((1, 3)))
+    assert tuple(out["out"].shape) == (1, 3)
+    assert calls == [(4, 3)]
+
+
+def test_microbatched_zero_remainder_untrimmed():
+    """Exact division: no pad, no trim."""
+    calls = []
+    run = R.microbatched(_counted(calls), 3)
+    x = torch.arange(18.0).reshape(6, 3)
+    out = run(x)
+    assert tuple(out["out"].shape) == (6, 3)
+    assert torch.equal(out["out"], x * 2.0)
+
+
+def test_microbatched_single_shape_across_ragged_totals():
+    """One call shape serves totals 6, 5, 3, 1 at microbatch 3 -- the
+    one-program-for-ragged-batches property the serving loop needs."""
+    calls = []
+    run = R.microbatched(_counted(calls), 3)
+    for total in (6, 5, 3, 1):
+        out = run(torch.ones((total, 4)))
+        assert tuple(out["out"].shape) == (total, 4)
+    assert set(calls) == {(3, 4)}, f"expected one shape, saw {calls}"
+
+
+def test_microbatched_strict_and_empty():
+    run = R.microbatched(lambda x: x, 2, pad=False)
+    with pytest.raises(ValueError, match="does not divide"):
+        run(torch.ones((5, 2)))
+    with pytest.raises(ValueError, match="empty"):
+        R.microbatched(lambda x: x, 2)(torch.ones((0, 2)))
+    with pytest.raises(ValueError, match="positive"):
+        R.microbatched(lambda x: x, 0)
+
+
+def test_microbatched_sparse_linear_bit_identical():
+    """Padded-and-trimmed microbatched SpMM == the slices' own rows,
+    bitwise."""
+    rng = np.random.default_rng(7)
+    w = torch.from_numpy(rng.standard_normal((12, 20)).astype(np.float32))
+    sl = S.SparseLinear.from_dense(w, 0.4)
+    x = torch.from_numpy(rng.standard_normal((5, 3, 12)).astype(np.float32))
+
+    def fn(xi):
+        return sl(xi, EC(impl="torch"))
+
+    got = R.microbatched(fn, 2)(x)
+    want = torch.stack([fn(x[i:i + 2])[j] for i, j in
+                        ((0, 0), (0, 1), (2, 0), (2, 1), (4, 0))])
+    assert torch.equal(got, want)
+
+
+# ------------------------------------------------------- bucket ladder ---
+
+
+def test_ladder_rounding_and_caps():
+    lad = BucketLadder.from_max(100, 8, min_len=8)
+    assert lad.lengths == (8, 16, 32, 64, 128)
+    assert lad.batches == (1, 2, 4, 8)
+    assert lad.length_bucket(1) == 8
+    assert lad.length_bucket(9) == 16
+    assert lad.length_bucket(128) == 128
+    assert lad.batch_bucket(3) == 4
+    with pytest.raises(ValueError, match="exceeds the largest bucket"):
+        lad.length_bucket(129)
+    with pytest.raises(ValueError, match="positive"):
+        lad.length_bucket(0)
+    with pytest.raises(ValueError, match="ascending"):
+        BucketLadder(lengths=(8, 8), batches=(1,))
+    with pytest.raises(ValueError, match="empty"):
+        BucketLadder(lengths=(), batches=(1,))
+
+
+def test_ladder_waste_bounded():
+    """Above the floor, a power-of-two rung is always < 2x its occupant."""
+    lad = BucketLadder.from_max(256, 16, min_len=8)
+    for n in range(8, 257):
+        assert n <= lad.length_bucket(n) < 2 * n
+    for c in range(1, 17):
+        assert c <= lad.batch_bucket(c) < 2 * c
+
+
+def test_pack_groups_fifo_chunks():
+    lad = BucketLadder(lengths=(8, 16), batches=(1, 2, 4))
+    pbs = pack([3, 12, 8, 15, 2, 9, 1, 5, 7], lad)
+    by_len = {pb.length: [] for pb in pbs}
+    for pb in pbs:
+        by_len[pb.length].extend(pb.indices)
+    assert by_len[8] == [0, 2, 4, 6, 7, 8]     # FIFO within a bucket
+    assert by_len[16] == [1, 3, 5]
+    # 6 short requests at max_batch 4 -> chunks of 4 + 2
+    assert [pb.batch for pb in pbs if pb.length == 8] == [4, 2]
+
+
+def test_pack_exactly_once_fixed_cases():
+    lad = BucketLadder.from_max(100, 8)
+    for lengths in ([], [1], [100] * 20, [3, 99, 8, 8, 8, 8, 8, 1, 64],
+                    list(range(1, 41))):
+        served = sorted(i for pb in pack(lengths, lad) for i in pb.indices)
+        assert served == list(range(len(lengths)))
+
+
+def test_poisson_schedule_deterministic():
+    for seed in (0, 7, 12345):
+        a = loadgen.poisson_schedule(12, 50.0, (1, 32), seed=seed)
+        assert a == loadgen.poisson_schedule(12, 50.0, (1, 32), seed=seed)
+        assert all(x.at_s <= y.at_s for x, y in zip(a, a[1:]))
+        assert all(1 <= x.length <= 32 for x in a)
+    assert loadgen.poisson_schedule(12, 50.0, (1, 32), seed=0) != \
+        loadgen.poisson_schedule(12, 50.0, (1, 32), seed=1)
+
+
+@pytest.mark.parametrize("max_len,max_batch,min_len", [
+    (100, 8, 8), (32, 4, 8), (256, 16, 4), (5, 1, 8)])
+def test_ladder_shapes_and_pack_equal_reference(max_len, max_batch,
+                                                min_len):
+    lad = BucketLadder.from_max(max_len, max_batch, min_len=min_len)
+    jlad = JBucketLadder.from_max(max_len, max_batch, min_len=min_len)
+    assert (lad.lengths, lad.batches) == (jlad.lengths, jlad.batches)
+    assert lad.shapes() == jlad.shapes()
+    lengths = np.random.default_rng(max_len).integers(
+        1, lad.max_len + 1, 40).tolist()
+    got = [(pb.length, pb.batch, pb.indices) for pb in pack(lengths, lad)]
+    want = [(pb.length, pb.batch, pb.indices)
+            for pb in jpack(lengths, jlad)]
+    assert got == want
+
+
+@pytest.mark.parametrize("seed", [0, 7, 12345])
+def test_schedule_and_tokens_equal_reference(seed):
+    got = loadgen.poisson_schedule(20, 37.5, (8, 32), seed=seed)
+    want = jloadgen.poisson_schedule(20, 37.5, (8, 32), seed=seed)
+    assert [(a.at_s, a.length) for a in got] == \
+        [(a.at_s, a.length) for a in want]
+    for i, a in enumerate(got):
+        np.testing.assert_array_equal(
+            loadgen.make_tokens(a.length, 512, seed * 100003 + i),
+            jloadgen.make_tokens(a.length, 512, seed * 100003 + i))
+
+
+# ---------------------------------------------------- server end-to-end ---
+
+
+def _scorer(seed=11, vocab=37, d_model=16, d_ff=48):
+    """Tiny SpMM scorer with a row-independent forward (plain versions)."""
+    rng = np.random.default_rng(seed)
+
+    def t(shape):
+        return torch.from_numpy(
+            rng.normal(0, 0.1, shape).astype(np.float32))
+
+    state = {"embed": t((vocab, d_model)),
+             "mlp": S.prune_mlp({"w1": t((d_model, d_ff)),
+                                 "w2": t((d_ff, d_model))}, 0.4)}
+
+    def forward(state, tokens):
+        h = state["embed"][tokens]
+        h = h + S.sparse_mlp_apply(state["mlp"], h, None,
+                                   exec=EC(impl="torch"))
+        return h @ state["embed"].T
+
+    return forward, state, vocab
+
+
+def test_server_warmup_builds_every_bucket_and_no_recompiles():
+    fwd, state, vocab = _scorer()
+    lad = BucketLadder(lengths=(4, 8), batches=(1, 2, 4))
+    srv = Server(fwd, state, lad, name="t.warm")
+    srv.warmup()
+    st_ = srv.programs.stats()
+    assert st_.misses == len(lad.shapes()) == 6
+    assert sorted(srv.programs.keys()) == sorted(lad.shapes())
+    srv.warmup()                      # idempotent: all hits
+    assert srv.programs.stats().misses == 6
+    assert srv.recompiles() == 0
+
+
+def test_server_bit_identical_to_packed_forward():
+    """Packed rows == the eager forward of the same packed token matrix,
+    bitwise, and a solo forward at batch bucket 1 to 2e-5 (another B
+    width, so another summation order in the SpMM's plain version).
+
+    Requests of mixed lengths are submitted *before* start() so the
+    batcher drains them into maximal packed batches."""
+    fwd, state, vocab = _scorer()
+    lad = BucketLadder(lengths=(4, 8), batches=(1, 2, 4))
+    lens = [3, 8, 4, 7, 1, 5]
+    reqs = [loadgen.make_tokens(n, vocab, seed=100 + n) for n in lens]
+    srv = Server(fwd, state, lad, name="t.bitid")
+    futs = [srv.submit(t) for t in reqs]
+    srv.start()
+    outs = [f.result(timeout=T) for f in futs]
+    srv.stop(timeout=T)
+    assert srv.recompiles() == 0
+    # All queued before start(): the batcher drains max_batch requests at
+    # a time in submission order and packs each drain.
+    groups = [(s, pb) for s in range(0, len(lens), lad.max_batch)
+              for pb in pack(lens[s:s + lad.max_batch], lad)]
+    with torch.no_grad():
+        for s, pb in groups:
+            mat = np.zeros((pb.batch, pb.length), np.int64)
+            for row, i in enumerate(pb.indices):
+                mat[row, :lens[s + i]] = reqs[s + i]
+            packed = fwd(srv.state, torch.from_numpy(mat))
+            for row, i in enumerate(pb.indices):
+                assert torch.equal(outs[s + i], packed[row, :lens[s + i]])
+        for toks, out in zip(reqs, outs):
+            n = len(toks)
+            mat = np.zeros((lad.batch_bucket(1), lad.length_bucket(n)),
+                           np.int64)
+            mat[0, :n] = toks
+            want = fwd(state, torch.from_numpy(mat))[0][:n]
+            assert tuple(out.shape) == (n, vocab)
+            torch.testing.assert_close(out, want, rtol=2e-5, atol=2e-5)
+    assert any(pb.batch > 1 for _, pb in groups)
+
+
+def test_server_batches_instead_of_serving_solo():
+    """16 same-length requests, max_batch 8 -> exactly 2 executed batches
+    (occupancy histogram count delta), vs 16 for a batch-1 ladder.
+    Count-based: no timing."""
+    fwd, state, vocab = _scorer()
+    occ = obs.registry.get("serve_batch_occupancy")
+    reqs = [loadgen.make_tokens(6, vocab, seed=i) for i in range(16)]
+
+    def count_batches(batches):
+        srv = Server(fwd, state, BucketLadder(lengths=(8,), batches=batches),
+                     name=f"t.occ{len(batches)}")
+        before = sum(c.count for c in occ.children())
+        futs = [srv.submit(t) for t in reqs]
+        srv.start()
+        for f in futs:
+            f.result(timeout=T)
+        srv.stop(timeout=T)
+        assert srv.recompiles() == 0
+        return sum(c.count for c in occ.children()) - before
+
+    assert count_batches((1, 2, 4, 8)) == 2
+    assert count_batches((1,)) == 16
+
+
+def test_server_sheds_deterministically_under_overload():
+    """Bounded queue + expired deadlines: 20 offered, depth 2 -> all 20
+    shed (18 at admission, 2 at dequeue), exact counter accounting."""
+    fwd, state, vocab = _scorer()
+    fam = obs.registry.counter("serve_requests_total",
+                               "served requests by outcome",
+                               labels=("outcome",))
+    shed_c = fam.labels(outcome="shed")
+    ok_c = fam.labels(outcome="ok")
+    before_shed, before_ok = shed_c.value, ok_c.value
+    srv = Server(fwd, state, BucketLadder(lengths=(4,), batches=(1, 2)),
+                 queue_depth=2, name="t.shed")
+    futs = [srv.submit(loadgen.make_tokens(4, vocab, seed=i),
+                       deadline_s=1e-9) for i in range(20)]
+    srv.start()
+    for f in futs:
+        with pytest.raises(RequestShed):
+            f.result(timeout=T)
+    srv.stop(timeout=T)
+    assert shed_c.value - before_shed == 20
+    assert ok_c.value - before_ok == 0
+    with pytest.raises(ServerClosed):
+        srv.submit(loadgen.make_tokens(4, vocab, seed=0))
+
+
+def test_server_rejects_oversized_and_bad_requests():
+    fwd, state, vocab = _scorer()
+    srv = Server(fwd, state, BucketLadder(lengths=(4,), batches=(1,)),
+                 name="t.rej")
+    with pytest.raises(ValueError, match="exceeds the largest bucket"):
+        srv.submit(np.zeros(5, np.int32))
+    with pytest.raises(ValueError, match="1-D"):
+        srv.submit(np.zeros((2, 3), np.int32))
+    with pytest.raises(ValueError, match="integers"):
+        srv.submit(np.zeros(3, np.float32))
+
+
+def test_server_retries_transient_failures():
+    """Two injected OSErrors then success: the request completes, and the
+    retries land on serve_retries_total."""
+    fwd, state, vocab = _scorer()
+
+    class Flaky(Server):
+        fails = 2
+
+        def _call_program(self, program, tokens):
+            if self.fails:
+                self.fails -= 1
+                raise OSError("injected transient fault")
+            return super()._call_program(program, tokens)
+
+    retries = obs.registry.counter(
+        "serve_retries_total", "transient execution failures retried")
+    before = retries.value
+    srv = Flaky(fwd, state, BucketLadder(lengths=(4,), batches=(1,)),
+                retry_backoff_s=0.001, name="t.retry")
+    fut = srv.submit(loadgen.make_tokens(3, vocab, seed=1))
+    srv.start()
+    out = fut.result(timeout=T)
+    srv.stop(timeout=T)
+    assert tuple(out.shape) == (3, vocab)
+    assert retries.value - before == 2
+
+
+def test_server_exhausted_retries_fail_the_future():
+    fwd, state, vocab = _scorer()
+
+    class Dead(Server):
+        def _call_program(self, program, tokens):
+            raise OSError("permanent fault")
+
+    srv = Dead(fwd, state, BucketLadder(lengths=(4,), batches=(1,)),
+               retry_attempts=2, retry_backoff_s=0.001, name="t.dead")
+    fut = srv.submit(loadgen.make_tokens(2, vocab, seed=1))
+    srv.start()
+    with pytest.raises(OSError, match="permanent"):
+        fut.result(timeout=T)
+    srv.stop(timeout=T)
+
+
+def test_server_concurrent_submitters():
+    """Many client threads racing submit: every request served once."""
+    fwd, state, vocab = _scorer()
+    srv = Server(fwd, state, BucketLadder(lengths=(8,), batches=(1, 4)),
+                 name="t.conc").start()
+    results = {}
+
+    def client(i):
+        n = 1 + (i % 8)
+        fut = srv.submit(loadgen.make_tokens(n, vocab, seed=i))
+        results[i] = tuple(fut.result(timeout=T).shape) == (n, vocab)
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(12)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=T)
+        assert not t.is_alive()
+    srv.stop(timeout=T)
+    assert len(results) == 12 and all(results.values())
+    assert srv.recompiles() == 0
+
+
+# ------------------------------------------------------- program cache ---
+
+
+def test_program_cache_hit_miss_evict():
+    pc = ProgramCache(maxsize=2, name="t.pc")
+    built = []
+
+    def mk(k):
+        return lambda: built.append(k) or k
+
+    assert pc.get("a", mk("a")) == "a"
+    assert pc.get("a", mk("a2")) == "a"
+    assert pc.get("b", mk("b")) == "b"
+    assert pc.get("c", mk("c")) == "c"          # evicts "a" (LRU)
+    assert pc.keys() == ["b", "c"]
+    s = pc.stats()
+    assert (s.hits, s.misses, s.evictions, s.size) == (1, 3, 1, 2)
+    assert built == ["a", "b", "c"]
+    pc.clear()
+    assert len(pc) == 0 and pc.stats().misses == 0
+
+
+# -------------------------------------------------------- serve.py CLI ---
+
+
+def test_serve_flags_require_prune_ffn(capsys):
+    for argv in (["--microbatch", "2"], ["--spmm-method", "merge"],
+                 ["--serve"]):
+        with pytest.raises(SystemExit) as ei:
+            serve.main(argv + ["--smoke", "--device", "cpu"])
+        assert ei.value.code == 2
+        assert "no effect without --prune-ffn" in capsys.readouterr().err
+
+
+def test_check_replans_raises():
+    assert serve._check_replans(SimpleNamespace(misses=3),
+                                SimpleNamespace(misses=3)) == 0
+    with pytest.raises(RuntimeError, match="replanned: 2"):
+        serve._check_replans(SimpleNamespace(misses=3),
+                             SimpleNamespace(misses=5))
+
+
+# ------------------------------------------------------------- loadgen ---
+
+
+def test_run_load_serves_schedule():
+    fwd, state, vocab = _scorer()
+    srv = Server(fwd, state, BucketLadder(lengths=(4, 8), batches=(1, 2)),
+                 name="t.load").start()
+    sched = loadgen.poisson_schedule(8, 500.0, (1, 8), seed=5)
+    rep = loadgen.run_load(srv, sched, vocab=vocab, seed=5, timeout_s=T)
+    srv.stop(timeout=T)
+    assert (rep.n, rep.ok, rep.shed, rep.error) == (8, 8, 0, 0)
+    assert rep.throughput_rps > 0 and rep.p99_us >= rep.p50_us
+    assert srv.recompiles() == 0
+
+
+def test_run_load_keeps_served_requests_at_their_buckets():
+    """``keep``: every served request's future names the bucket, row and
+    packed token matrix it ran in, and its rows are bit-equal to the eager
+    forward of that matrix; each future was stamped (``done_s``) before it
+    resolved, so the latencies need no done-callback."""
+    fwd, state, vocab = _scorer()
+    srv = Server(fwd, state, BucketLadder(lengths=(4, 8), batches=(1, 2)),
+                 name="t.keep").start()
+    sched = loadgen.poisson_schedule(12, 2000.0, (1, 8), seed=9)
+    rep = loadgen.run_load(srv, sched, vocab=vocab, seed=9, timeout_s=T,
+                           keep=True)
+    srv.stop(timeout=T)
+    assert rep.ok == len(rep.served) == 12
+    with torch.no_grad():
+        for tokens, fut in rep.served:
+            n = len(tokens)
+            assert fut.bucket == fut.packed.shape
+            assert fut.bucket in srv.ladder.shapes()
+            np.testing.assert_array_equal(fut.packed[fut.row, :n], tokens)
+            want = fwd(srv.state, torch.from_numpy(fut.packed))
+            assert torch.equal(fut.result(timeout=T), want[fut.row, :n])
+            assert fut.done_s is not None
+    srv = Server(fwd, state, BucketLadder(lengths=(8,), batches=(1,)),
+                 name="t.nokeep").start()
+    plain = loadgen.run_load(srv, sched[:2], vocab=vocab, timeout_s=T)
+    srv.stop(timeout=T)
+    assert plain.ok == 2 and plain.served == []
+
+
+def test_shed_and_failed_futures_are_stamped():
+    fwd, state, vocab = _scorer()
+
+    class Broken(Server):
+        def _call_program(self, program, tokens):
+            raise ValueError("not transient")
+
+    srv = Broken(fwd, state, BucketLadder(lengths=(8,), batches=(1,)),
+                 queue_depth=1, name="t.stamp")
+    kept = srv.submit(loadgen.make_tokens(3, vocab, seed=1))
+    shed = srv.submit(loadgen.make_tokens(3, vocab, seed=2))
+    with pytest.raises(RequestShed):
+        shed.result(timeout=T)
+    assert shed.done_s is not None and shed.bucket is None
+    srv.start()
+    with pytest.raises(ValueError, match="not transient"):
+        kept.result(timeout=T)
+    srv.stop(timeout=T)
+    assert kept.done_s is not None and kept.bucket == (1, 8)
+
+
+def test_loadgen_rejects_degenerate_schedules():
+    with pytest.raises(ValueError, match="positive request count"):
+        loadgen.poisson_schedule(0, 1.0, (1, 4))
+    with pytest.raises(ValueError, match="positive rate"):
+        loadgen.poisson_schedule(1, 0.0, (1, 4))
+
+
+def test_server_latency_phases_recorded():
+    fwd, state, vocab = _scorer()
+    fam = obs.registry.get("serve_request_latency_us")
+
+    def counts():
+        return {tuple(c.labels.items()): c.count for c in fam.children()}
+
+    before = counts()
+    srv = Server(fwd, state, BucketLadder(lengths=(4,), batches=(1,)),
+                 name="t.lat").start()
+    srv.submit(loadgen.make_tokens(3, vocab, seed=2)).result(timeout=T)
+    srv.stop(timeout=T)
+    after = counts()
+    for phase in ("queue_wait", "assemble", "execute", "total"):
+        key = (("phase", phase),)
+        assert after.get(key, 0) - before.get(key, 0) == 1, phase
+
+
+# ---------------------------------------------- the smoke Llama, served ---
+
+
+def test_server_on_smoke_llama_matches_reference():
+    """The port's server on the smoke Llama pruned forward (f32 compute,
+    the reference's params carried across) against the reference's
+    ``make_pruned_forward`` on each request's packed bucket matrix: the
+    two packages differ only in summation order, 1e-4."""
+    import dataclasses
+    jcfg = dataclasses.replace(jget_smoke("llama3.2-1b"),
+                               compute_dtype="float32")
+    tcfg = dataclasses.replace(get_smoke_config("llama3.2-1b"),
+                               compute_dtype="float32")
+    jparams = jmodel.init_params(jcfg, jax.random.PRNGKey(0))
+    jblocks = jserve.prune_ffn_blocks(
+        jparams, jcfg, 0.25, policy=JPlanPolicy(method="rowsplit",
+                                                tunedb=None))
+    jfwd = jax.jit(jserve.make_pruned_forward(jcfg))
+    tparams = convert.params_from_numpy(
+        jax.tree.map(np.asarray, jparams), tcfg, device="cpu")
+    tblocks = serve.prune_ffn_blocks(tparams, tcfg, 0.25)
+    base = serve.make_pruned_forward(tcfg)
+    lad = BucketLadder.from_max(16, 2, min_len=8)
+    srv = Server(lambda st, tok: base(st[0], st[1], tok), (tparams, tblocks),
+                 lad, name="t.llama")
+    lens = [5, 16, 8, 11]
+    reqs = [loadgen.make_tokens(n, tcfg.vocab_size, seed=n) for n in lens]
+    futs = [srv.submit(r) for r in reqs]
+    srv.start()
+    outs = [f.result(timeout=T) for f in futs]
+    srv.stop(timeout=T)
+    assert srv.recompiles() == 0
+    for pb in pack(lens, lad):
+        mat = np.zeros((pb.batch, pb.length), np.int32)
+        for row, i in enumerate(pb.indices):
+            mat[row, :lens[i]] = reqs[i]
+        want = np.asarray(jfwd(jparams, jblocks, mat))
+        for row, i in enumerate(pb.indices):
+            np.testing.assert_allclose(outs[i].numpy(),
+                                       want[row, :lens[i]], rtol=1e-4,
+                                       atol=1e-4)
