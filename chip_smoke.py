@@ -72,6 +72,28 @@ NVIDIA H100 (sm_90a) and the CUDA toolkit.  Phases, each timed:
               in and, packed with others, to a solo forward within the
               serving bars; ``serve_pruned(..., microbatch=2)`` held to the
               unbatched logits;
+   tune     — the autotuner (``repro_torch.tune``) on the card: every
+              method's kernel held to its plain version on the ``paper``
+              suite, then ``tune_suite`` over it (merge t 8/16/32,
+              row-split pads, rowgroup) into a TuneDB keyed on the card,
+              and ``tune_pattern`` on card-sized crossover matrices
+              (uniform, irregular, power-law, banded and block-sparse
+              families, layer 0's pruned Llama FFN matrices, the power-law
+              matrix above), each row-split ELL's bytes printed first,
+              each method's kernel held to its plain version at every
+              candidate the tuner times; per matrix each method's µs, the
+              winner and ``torch.sparse.mm``;
+              the threshold calibrated on the card and its agreement
+              against the paper's 9.35; geomean and peak speedup over
+              ``torch.sparse.mm`` of the oracle, §5.4 and calibrated picks;
+              the served model's 48 FFN patterns tuned, the DB loaded with
+              ``engine.load_tunedb`` and ``serve_pruned`` run twice through
+              the ladder (48 exact hits, 0 plans built while serving,
+              logits bit-equal to the forced method's run, the eager warm
+              forward beside row-split forced); ``python -m
+              repro_torch.tune --suite mini`` and ``python -m
+              repro_torch.launch.serve --prune-ffn 0.25 --tunedb`` on the
+              card; the power-law matrix's DB pick against the §5.4 pick;
 6. training — sparse fine-tuning of layer 0's pruned FFN at full width
               (``make_sparse_train_step``, 5 SGD steps toward the dense
               FFN's output) for both methods: losses, step times, device
@@ -142,11 +164,14 @@ PARITY_N = (1, 8, 16, 32, 64, 128, 160)
 # rounding and travel through 16 layers.  |logits| ~ 1 after the final
 # norm.
 SERVE_TOL = dict(max_abs=0.25, rel_fro=2e-2)
-# Rowgroup's kernels vs its plain version on the power-law matrix: f32 sums
-# of up to 11,853 products in other orders (the kernel's slots 32 at a time
-# in r parts, the plain version's batched dot products).  The error of such
-# a sum grows with the row's magnitude, not the element's, so the absolute
-# part is 2e-5 of the largest |C|.
+# Rowgroup's kernels vs its plain version on the power-law matrix, and
+# every method's kernel vs its plain version on the paper suite (the tune
+# phase): f32 sums of up to 11,853 products in other orders (the kernel's
+# slots 32 at a time in r parts, the plain version's batched dot
+# products).  The error of such a sum grows with the row's magnitude, not
+# the element's, so the absolute part is 2e-5 of the largest |C|: on the
+# paper suite's heavy-tailed graph (rows up to 2048, |C| up to ~150) the
+# plain f32 version itself lies 1.3e-4 from a float64 sum.
 POWER_LAW_TOL = dict(rtol=2e-5, atol_of_max=2e-5)
 # The online phase: the reference serve CLI's --serve path at batch 4 x
 # prompt 32 (buckets 8/16/32 x 1/2/4), 64 Poisson requests of lengths
@@ -203,6 +228,35 @@ GEN_LEN = 16                   # the reference serve CLI's --gen default
 # power_law recipe) at m = k = 262,144 with mean row length 16, about as
 # many nonzeros as one Llama FFN matrix, held to nothing.
 POWER_LAW = dict(seed=SEED, m=262_144, d=16, alpha=1.6)
+
+# The tune phase.  The reference's corpus suites are sized for CPU timing
+# and launch-bound on the card, so the §5.4 crossover is also measured on
+# card-sized matrices of the same generators, name -> (generator, args,
+# kwargs), at B (k, CROSS_N) f32: uniform and uniform_irregular at
+# 131,072², d 1-64; power_law (alpha 1.6) at 65,536², d 2-32 (its
+# row-split ELL grows with the longest row: at 131,072 rows and d 32 it
+# would take ~25 GB, so that size is left out); banded 131,072², half-width
+# 1/4/16; block_sparse 8192², blocks of 8 and 16, keep 0.1 and 0.25.  The
+# Llama-3.2-1B FFN matrices (layer 0's w1 and w2 as serving prunes them)
+# and the timing phase's power-law matrix join them at the serving width.
+CROSS_M, CROSS_N = 131_072, 64
+TUNE_WARMUP, TUNE_REPEAT = 2, 5     # timed graph replays a tune candidate
+PLAIN_BLOCK_BYTES = 2**31           # row-split's plain gather, a row block
+CROSSOVER = {
+    **{f"uniform_131k_d{d}": ("uniform", (60 + i, CROSS_M, CROSS_M, d), {})
+       for i, d in enumerate((1, 2, 4, 8, 16, 32, 64))},
+    **{f"uniform_irr_131k_d{d}": ("uniform_irregular",
+                                  (70 + i, CROSS_M, CROSS_M, d), {})
+       for i, d in enumerate((1, 2, 4, 8, 16, 32, 64))},
+    **{f"powlaw_65k_d{d}": ("power_law", (7, 65_536, 65_536, d), {})
+       for d in (2, 4, 8, 16, 32)},
+    **{f"banded_131k_b{b}": ("banded", (90 + i, CROSS_M, CROSS_M, b), {})
+       for i, b in enumerate((1, 4, 16))},
+    **{f"block{blk}_8k_keep{keep}": ("block_sparse", (95 + i, 8192, 8192),
+                                     dict(block=blk, keep=keep))
+       for i, (blk, keep) in enumerate(((8, 0.1), (8, 0.25), (16, 0.1),
+                                        (16, 0.25)))},
+}
 
 # The grouped GEMM: the reference's sweep (tests/test_kernels.py, sizes,
 # d_in, d_out at tt 8) and OLMoE-1B-7B's two shapes — w1/w3 (d_model ->
@@ -737,11 +791,10 @@ def timing_power_law(dev, card) -> dict:
     matrix, where the merge path is meant to win: ``power_law_csr`` at
     POWER_LAW (about as many nonzeros as one Llama FFN matrix, row lengths
     from 1 to ~12 k), B (k, 128) f32.  Row-split's plan pads every row to
-    the longest, so its ELL arrays are built here a block of rows at a time
-    (the planner's int64 temporaries for all rows would not fit the card);
-    rowgroup pads each length octave to its own longest and runs one
-    row-split launch a bucket, held to its plain version.  Timed and
-    printed, each agreeing with the library call."""
+    the longest (~25 GB of ELL arrays, which the planner fills a block of
+    rows at a time); rowgroup pads each length octave to its own longest
+    and runs one row-split launch a bucket, held to its plain version.
+    Timed and printed, each agreeing with the library call."""
     from repro_torch.core import PlanPolicy, build_plan, power_law_csr
     from repro_torch.kernels import (_cuda, merge_spmm, ops, rowgroup_spmm,
                                      rowsplit_spmm)
@@ -757,15 +810,9 @@ def timing_power_law(dev, card) -> dict:
     b = torch.randn(m, n, generator=gen, device=dev)
     fwd = build_plan(a, PlanPolicy(method="merge",
                                    with_transpose=False)).fwd
-    l = rowsplit_spmm.DEFAULT_TL * -(-longest // rowsplit_spmm.DEFAULT_TL)
-    ell = dict(cols=torch.empty((m, l), dtype=torch.int32, device=dev),
-               slot_nz=torch.empty((m, l), dtype=torch.int32, device=dev))
-    block = 2048
-    for r0 in range(0, m, block):
-        part = rowsplit_spmm.ell_slots(
-            a, torch.arange(r0, min(r0 + block, m), device=dev), l)
-        for key in ell:
-            ell[key][r0:r0 + block] = part[key]
+    ell = build_plan(a, PlanPolicy(method="rowsplit",
+                                   with_transpose=False)).fwd
+    l = ell["cols"].shape[1]
     with warnings.catch_warnings():      # "beta state" notices
         warnings.simplefilter("ignore")
         sp = torch.sparse_csr_tensor(a.row_ptr, a.col_ind, a.vals, (m, m),
@@ -857,6 +904,423 @@ def timing_power_law(dev, card) -> dict:
     del ell, fwd, sp, a, b, lib, rg
     torch.cuda.empty_cache()
     return out
+
+
+def tune(cfg, params, prompt, forced, dev, card, reset_counts,
+         read_counts) -> dict:
+    """The autotuner on the card, through ``repro_torch.tune``.
+
+    1. The ``paper`` suite: each method's kernel held to its plain version
+       on every matrix, ``torch.sparse.mm`` timed (a yardstick the port
+       never calls), then ``tune_suite(..., wide=True)`` into a TuneDB
+       keyed on this card.
+    2. The §5.4 crossover at card sizes: CROSSOVER, layer 0's pruned w1/w2
+       and the POWER_LAW matrix through ``tune_pattern``, each row-split
+       ELL's bytes printed first and each method's kernel held to its plain
+       version at every candidate the tuner times; the calibrated
+       threshold and its oracle
+       agreement against the paper's 9.35 on the same records; geomean and
+       peak speedup over ``torch.sparse.mm`` of the oracle pick, the §5.4
+       pick and the calibrated pick.
+    3. The main path with the DB: the served model's other 46 pruned FFN
+       patterns tuned in, the DB saved and loaded with
+       ``engine.load_tunedb``, ``serve_pruned`` run twice through the
+       ladder (every plan an exact hit, none built while serving, logits
+       bit-equal to the serving phase's run with the picked method
+       forced), the eager warm forward timed beside row-split forced's;
+       ``python -m repro_torch.tune --suite mini`` and ``python -m
+       repro_torch.launch.serve --prune-ffn 0.25 --tunedb`` in
+       subprocesses, both on the card.
+    4. The power-law matrix resolved through the DB, against the §5.4
+       pick, with both times.
+
+    The launches: the tuner's and the two serving runs'.  For each timed
+    candidate ``timeit`` makes one warm call, captures INNER calls into a
+    graph and replays it TUNE_WARMUP + TUNE_REPEAT times.  The wrappers
+    count the warm call and the captured calls, which only record their
+    launches; the replays run INNER calls each and pass no wrapper.  So
+    the wrappers' count while tuning is held to (1 + INNER) calls a
+    candidate, and the launches that ran are (1 + (TUNE_WARMUP +
+    TUNE_REPEAT) x INNER) calls a candidate, a call being one launch (one
+    a length bucket for rowgroup).  The parity checks' launches are kept
+    off both."""
+    import ast
+
+    from repro_torch import engine
+    from repro_torch import matrices as G
+    from repro_torch.core import (PAPER_THRESHOLD, ExecutionConfig,
+                                  Heuristic, PlanPolicy, build_plan,
+                                  execute_plan, pattern_fingerprint,
+                                  power_law_csr, prune_to_csr)
+    from repro_torch.core.config import resolve_counts
+    from repro_torch.kernels import _cuda, ref, registry, rowsplit_spmm
+    from repro_torch.launch import serve
+    from repro_torch.tune import TuneDB, timeit, tune_pattern, tune_suite
+    from repro_torch.tune.timing import INNER
+
+    out_dir = _cuda.BUILD_DIR / "tune"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = out_dir / "tune.json"
+    db = TuneDB()
+    print(f"TuneDB backend {db.backend!r}, written to {path}")
+    kernel_of = {"merge": "merge_spmm", "rowsplit": "rowsplit_spmm",
+                 "rowgroup": "rowsplit_spmm"}
+    worst = {"merge_spmm": 0.0, "rowsplit_spmm": 0.0}
+    library = {}
+    # The tuner's kernel calls: what the wrappers count, what runs; and the
+    # parity checks' launches, kept off the phase's count.
+    counted, ran = dict.fromkeys(worst, 0), dict.fromkeys(worst, 0)
+    excluded = dict.fromkeys(worst, 0)
+
+    def expect_tuning(a):
+        """Add one ``tune_pattern(a, wide=True)``'s calls to counted/ran."""
+        for method in registry.method_names():
+            per_call = len(PlanPolicy(method=method, with_transpose=False)
+                           .resolve(a).extra) if method == "rowgroup" else 1
+            calls = per_call * len(registry.get_method(method)
+                                   .tune_candidates(a, True))
+            counted[kernel_of[method]] += calls * (1 + INNER)
+            ran[kernel_of[method]] += calls * (
+                1 + (TUNE_WARMUP + TUNE_REPEAT) * INNER)
+
+    def plain(method, plan, vals, b, m):
+        """The method's plain version; row-split's a block of ELL rows at
+        a time (its gather holds rows x slots x n floats: 100 GB on
+        ``powlaw_65k_d32``)."""
+        if method != "rowsplit":
+            return execute_plan(plan, vals, b, ExecutionConfig(impl="torch"))
+        slots = plan.fwd["cols"].shape[1]
+        step = max(1, PLAIN_BLOCK_BYTES // (slots * b.shape[-1] * 4))
+        return torch.cat([ref.rowsplit_execute_ref(
+            {key: plan.fwd[key][r:r + step] for key in ("cols", "slot_nz")},
+            vals, b, min(step, m - r)) for r in range(0, m, step)])
+
+    def hold(a, n, what):
+        """Each method's kernel at every candidate the tuner times on ``a``
+        against its plain version, B (k, n) from a seed, at the suite's
+        bar; the worst error a method."""
+        before = read_counts()
+        g = torch.Generator(device=dev).manual_seed(11)
+        b = torch.randn(a.k, n, generator=g, device=dev)
+        errs = {}
+        for method in registry.method_names():
+            for cand in registry.get_method(method).tune_candidates(a, True):
+                plan = build_plan(a, PlanPolicy(method=method,
+                                                with_transpose=False, **cand))
+                got = execute_plan(plan, a.vals, b,
+                                   ExecutionConfig(impl="cuda"))
+                want = plain(method, plan, a.vals, b, a.m)
+                tol = dict(rtol=POWER_LAW_TOL["rtol"],
+                           atol=POWER_LAW_TOL["atol_of_max"]
+                           * want.abs().max().item())
+                params = "".join(f" {k}={v}" for k, v in cand.items())
+                err, _ = check_close(f"tune parity {method}{params} {what}",
+                                     got, want, tol)
+                errs[method] = max(errs.get(method, 0.0), err)
+                worst[kernel_of[method]] = max(worst[kernel_of[method]], err)
+                del plan, got, want
+                torch.cuda.empty_cache()
+        after = read_counts()
+        for key in excluded:
+            excluded[key] += after[key] - before[key]
+        return errs
+
+    def library_us(a, n):
+        g = torch.Generator(device=dev).manual_seed(7)
+        b = torch.randn(a.k, n, generator=g, device=dev)
+        nnz = a.nnz()
+        with warnings.catch_warnings():      # "beta state" notices
+            warnings.simplefilter("ignore")
+            sp = torch.sparse_csr_tensor(a.row_ptr, a.col_ind[:nnz],
+                                         a.vals[:nnz], a.shape,
+                                         check_invariants=True)
+        return timeit(torch.sparse.mm, sp, b)
+
+    def ell_bytes(a):
+        tl, tm = rowsplit_spmm.DEFAULT_TL, rowsplit_spmm.TM
+        longest = max(int(a.row_lengths().max()), 1)
+        return 2 * 4 * tm * -(-a.m // tm) * tl * -(-longest // tl)
+
+    # 1. The paper suite: parity, the library call, then the tuner.
+    for spec in G.get_suite("paper"):
+        a = spec().to(dev)
+        g = torch.Generator(device=dev).manual_seed(11)
+        b = torch.randn(a.k, CROSS_N, generator=g, device=dev)
+        errs, eager = {}, {}
+        for method in registry.method_names():
+            plan = build_plan(a, PlanPolicy(method=method,
+                                            with_transpose=False))
+            kname = kernel_of[method]
+            before = read_counts()[kname]
+            got = execute_plan(plan, a.vals, b, ExecutionConfig(impl="cuda"))
+            launched = read_counts()[kname] - before
+            # Eager calls back to back (CUDA events), against the tuner's
+            # graph replays below: where the host's dispatch sets the time.
+            eager[method] = time_ms(lambda: execute_plan(
+                plan, a.vals, b, ExecutionConfig(impl="cuda"))) * 1e3
+            want = execute_plan(plan, a.vals, b,
+                                ExecutionConfig(impl="torch"))
+            exact = execute_plan(plan, a.vals.double(), b.double(),
+                                 ExecutionConfig(impl="torch"))
+            expect = len(plan.meta.extra) if method == "rowgroup" else 1
+            if launched != expect:
+                raise AssertionError(f"tune parity {method} {spec.name}: "
+                                     f"{launched} launches, want {expect}")
+            tol = dict(rtol=POWER_LAW_TOL["rtol"],
+                       atol=POWER_LAW_TOL["atol_of_max"]
+                       * want.abs().max().item())
+            err, _ = check_close(f"tune parity {method} {spec.name}", got,
+                                 want, tol)
+            errs[method] = (err, tol["atol"],
+                            (got.double() - exact).abs().max().item(),
+                            (want.double() - exact).abs().max().item())
+            worst[kname] = max(worst[kname], err)
+        library[spec.name] = library_us(a, CROSS_N)
+        expect_tuning(a)
+        s = G.compute_stats(a)
+        print(f"tune parity {spec.name} {a.shape} nnz {s.nnz} d {s.d:.2f} "
+              f"cv {s.cv:.2f} rows up to {s.max_len}: kernel vs plain max "
+              f"|d| (atol; kernel / plain vs a float64 sum) "
+              + ", ".join(f"{k} {e:.3e} ({t:.1e}; {x:.3e} / {y:.3e})"
+                          for k, (e, t, x, y) in errs.items())
+              + f", rtol {POWER_LAW_TOL['rtol']}; row-split ELL "
+              f"{ell_bytes(a)} B; eager back-to-back calls "
+              + ", ".join(f"{k} {v:.3f} us" for k, v in eager.items())
+              + f"; torch.sparse.mm {float(library[spec.name]):.3f} us")
+    reset_counts()
+    t0 = time.perf_counter()
+    tune_suite(G.get_suite("paper"), db, n=CROSS_N, wide=True, device=dev,
+               warmup=TUNE_WARMUP, repeat=TUNE_REPEAT, log=print)
+    print(f"tune paper suite: {len(db)} matrices in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # 2. The crossover at card sizes.
+    layer0 = params["blocks"][0]["mlp"]
+    specs = [(name, lambda fn=fn, args=args, kw=kw: getattr(G, fn)(
+        *args, **kw, device=dev), CROSS_N)
+        for name, (fn, args, kw) in CROSSOVER.items()]
+    n_serve = SERVE_BATCH * SERVE_PROMPT
+    specs += [(f"llama_{w}_layer0", lambda w=w: prune_to_csr(
+        layer0[w].T, KEEP), n_serve) for w in ("w1", "w2")]
+    specs.append(("power_law_262k", lambda: power_law_csr(
+        POWER_LAW["seed"], POWER_LAW["m"], POWER_LAW["m"], POWER_LAW["d"],
+        alpha=POWER_LAW["alpha"], device=dev), n_serve))
+    clash = {name for name, _, _ in specs} & set(library)
+    if clash:
+        raise AssertionError(f"crossover names shared with the suite: "
+                             f"{sorted(clash)}")
+    t_cross = time.perf_counter()
+    for name, build, n in specs:
+        t0 = time.perf_counter()
+        a = build()
+        made = time.perf_counter() - t0
+        s = G.compute_stats(a)
+        eb = ell_bytes(a)
+        print(f"tune {name}: {a.shape} nnz {s.nnz} d {s.d:.2f} cv "
+              f"{s.cv:.2f} rows up to {s.max_len} long, n {n} (made in "
+              f"{made:.1f} s); row-split ELL {eb} B ({eb / 2**30:.3f} GiB)",
+              flush=True)
+        errs = hold(a, n, name)
+        print(f"tune parity {name}: kernel vs plain max |d| at every tuned "
+              f"candidate " + ", ".join(f"{k} {e:.3e}"
+                                        for k, e in errs.items())
+              + f" (rtol {POWER_LAW_TOL['rtol']}, atol "
+              f"{POWER_LAW_TOL['atol_of_max']} of the largest |C|)",
+              flush=True)
+        expect_tuning(a)
+        db.record(pattern_fingerprint(a), tune_pattern(
+            a, n=n, wide=True, name=name, warmup=TUNE_WARMUP,
+            repeat=TUNE_REPEAT, log=print))
+        library[name] = library_us(a, n)
+        if name == "power_law_262k":
+            power_law = a
+        del a
+    torch.cuda.empty_cache()
+    print(f"tune crossover: {len(specs)} matrices in "
+          f"{time.perf_counter() - t_cross:.1f} s")
+    thr, acc = db.calibrate_threshold()
+    recs = {rec.name: rec for rec in db.entries.values()}
+    rows = [(name, recs[name], library[name]) for name in library]
+    for name, rec, lib in rows:
+        best = rec.timings[rec.method]
+        won = "".join(f" {k}={v}" for k, v in (("t", rec.t),
+                                               ("l_pad", rec.l_pad))
+                      if v is not None)
+        print(f"tune row {name}: m {rec.m} k {rec.k} d {rec.d:.2f} cv "
+              f"{rec.cv:.2f} n {rec.n}: "
+              + ", ".join(f"{m} {us:.3f} us" for m, us in
+                          sorted(rec.timings.items()))
+              + f"; winner {rec.method}{won}; merge/row-split oracle "
+              f"{rec.oracle}; torch.sparse.mm {float(lib):.3f} us, the "
+              f"winner {float(lib) / best:.3f}x faster; {card}")
+
+    def pick(rec, threshold):
+        return "merge" if rec.d < threshold else "rowsplit"
+
+    paper_acc = statistics.fmean(pick(r, PAPER_THRESHOLD) == r.oracle
+                                 for _, r, _ in rows)
+    speedups = {}
+    for label, chooser in (("oracle", lambda r: r.method),
+                           ("paper_9.35", lambda r: pick(r, PAPER_THRESHOLD)),
+                           ("calibrated", lambda r: pick(r, thr))):
+        xs = [float(lib) / r.timings[chooser(r)] for _, r, lib in rows]
+        speedups[label] = dict(geomean=statistics.geometric_mean(xs),
+                               peak=max(xs))
+    print(f"tune crossover over {len(rows)} matrices (paper suite + "
+          f"crossover): calibrated threshold {thr:.4f}, oracle agreement "
+          f"{acc * 100:.1f}%; the paper's {PAPER_THRESHOLD} agrees on "
+          f"{paper_acc * 100:.1f}%; speedup over torch.sparse.mm "
+          + "; ".join(f"{k} geomean {v['geomean']:.3f}x peak "
+                      f"{v['peak']:.3f}x" for k, v in speedups.items())
+          + f"; {card}")
+
+    # 3. The main path with the DB.
+    t0 = time.perf_counter()
+    for li, lp in enumerate(params["blocks"]):
+        for w, weight in lp["mlp"].items():
+            a = prune_to_csr(weight.T, KEEP)
+            fp = pattern_fingerprint(a)
+            if db.lookup_exact(fp) is None:
+                expect_tuning(a)
+                db.record(fp, tune_pattern(
+                    a, n=n_serve, wide=True, name=f"llama_{w}_layer{li}",
+                    warmup=TUNE_WARMUP, repeat=TUNE_REPEAT))
+    now = read_counts()
+    tuning = {key: v - excluded.get(key, 0) for key, v in now.items()}
+    db.save(path)
+    print(f"tune served patterns: {len(db) - len(rows)} more in "
+          f"{time.perf_counter() - t0:.1f} s; saved {len(db)} records; "
+          f"the wrappers counted {tuning} while tuning (parity checks' "
+          f"{excluded} left out), expected {counted}: a warm call and "
+          f"{INNER} captured calls a candidate; launches that ran "
+          f"{ran}: a warm call and {TUNE_WARMUP + TUNE_REPEAT} replays of "
+          f"{INNER} calls a candidate")
+    if tuning != dict(dict.fromkeys(tuning, 0), **counted):
+        raise AssertionError(f"tune: the wrappers counted {tuning} while "
+                             f"tuning, expected {counted}")
+    loaded = engine.load_tunedb(path)
+    if len(loaded) != len(db):
+        raise AssertionError(f"{path}: loaded {len(loaded)} of {len(db)}")
+    launches = dict(ran)
+    first = None
+    for run in ("first", "again"):
+        before = resolve_counts()
+        reset_counts()
+        rep = serve.serve_pruned(cfg, params, prompt, KEEP)
+        counts = read_counts()
+        rungs = resolve_counts(since=before)
+        blocks = serve.prune_ffn_blocks(params, cfg, KEEP)
+        picks = {(li, w): sl.plan for li, blk in enumerate(blocks)
+                 for w, sl in blk["mlp"].items()}
+        by = {}
+        for (li, w), plan in picks.items():
+            by.setdefault(w, {}).setdefault(plan.meta.method, 0)
+            by[w][plan.meta.method] += 1
+            rec = loaded.lookup_exact(pattern_fingerprint(
+                blocks[li]["mlp"][w].weight))
+            if plan.meta.method != rec.method:
+                raise AssertionError(f"layer {li} {w}: planned "
+                                     f"{plan.meta.method}, DB {rec.method}")
+        per_forward = {"rowsplit_spmm": 0, "merge_spmm": 0}
+        for plan in picks.values():
+            method = plan.meta.method
+            per_forward[kernel_of[method]] += \
+                len(plan.meta.extra) if method == "rowgroup" else 1
+        want = {name: 2 * per_forward.get(name, 0) for name in counts}
+        print(f"serve with the TuneDB ({run}): plan_resolve_total {rungs}; "
+              f"methods by matrix {by}; plans built during serving "
+              f"{rep.replans}; warm forward {rep.warm_s * 1e3:.2f} ms; "
+              f"launches {counts} over 2 forwards; {card}")
+        if set(r for r, _ in rungs) != {"exact"} or \
+                sum(rungs.values()) != len(picks):
+            raise AssertionError(f"serving with the DB resolved {rungs}, "
+                                 f"expected {len(picks)} exact hits")
+        if rep.replans or counts != want:
+            raise AssertionError(f"serving with the DB: {rep.replans} "
+                                 f"replans, launches {counts} != {want}")
+        for method in sorted(set(p.meta.method for p in picks.values())):
+            if not torch.equal(rep.logits, forced[method]):
+                raise AssertionError(f"logits with the DB differ from the "
+                                     f"run with {method} forced")
+        print(f"logits with the TuneDB bit-equal to the run with "
+              f"{sorted(set(p.meta.method for p in picks.values()))} "
+              f"forced: True")
+        if first is not None and not torch.equal(rep.logits, first):
+            raise AssertionError("the second run with the DB differs")
+        first = rep.logits
+        for name, c in counts.items():
+            launches[name] = launches.get(name, 0) + c
+        del rep, blocks, picks
+    # What the DB's picks cost the eager caller, whose forward is host
+    # bound: the warm forward with the DB's plans beside row-split forced,
+    # in the order DB, row-split, row-split, DB (host clock, synchronised,
+    # each the median of 5 after a warm call; kernels uncounted).
+    fwd = serve.make_pruned_forward(cfg)
+    policies = {"tunedb": None, "rowsplit": PlanPolicy(method="rowsplit")}
+    eager = {label: [] for label in policies}
+    for label in ("tunedb", "rowsplit", "rowsplit", "tunedb"):
+        blocks = serve.prune_ffn_blocks(params, cfg, KEEP, policies[label])
+
+        def forward(blocks=blocks):
+            with torch.no_grad():
+                fwd(params, blocks, prompt)
+
+        eager[label].append(host_ms(forward))
+        del blocks
+    print(f"eager warm forward with the TuneDB's picks "
+          + ", ".join(f"{ms:.3f}" for ms in eager["tunedb"])
+          + " ms, with row-split forced "
+          + ", ".join(f"{ms:.3f}" for ms in eager["rowsplit"])
+          + f" ms (DB, row-split, row-split, DB); {card}")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [SRC] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    mini = out_dir / "mini.json"
+    mini.unlink(missing_ok=True)
+    torch.cuda.empty_cache()
+    for argv, limit in (
+            (["-m", "repro_torch.tune", "--suite", "mini", "--out",
+              str(mini), "--warmup", "1", "--repeat", "2"], 300),
+            (["-m", "repro_torch.launch.serve", "--prune-ffn", str(KEEP),
+              "--tunedb", str(path)], 600)):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, *argv], capture_output=True,
+                              text=True, env=env, timeout=limit, cwd=ROOT)
+        print(f"$ python {' '.join(argv)}  (exit {proc.returncode}, "
+              f"{time.perf_counter() - t0:.1f} s)")
+        print("\n".join(proc.stdout.splitlines()[-12:]))
+        if proc.returncode != 0:
+            raise AssertionError(f"{argv[1]} exited {proc.returncode}: "
+                                 f"{proc.stderr[-3000:]}")
+    line = next(ln for ln in proc.stdout.splitlines()
+                if "plan_resolve_total of this run" in ln)
+    cli_rungs = ast.literal_eval(line.split(": ", 1)[1])
+    if "plans built during serving: 0" not in proc.stdout or \
+            not all(k.startswith("exact/") for k in cli_rungs):
+        raise AssertionError(f"serve --tunedb: {line}")
+
+    # 4. The power-law matrix through the DB.
+    before = resolve_counts()
+    r = PlanPolicy(tunedb=loaded).resolve(power_law)
+    (rung, _), = resolve_counts(since=before)
+    paper = Heuristic().choose(power_law)
+    rec = loaded.lookup_exact(pattern_fingerprint(power_law))
+    print(f"power law {POWER_LAW['m']}² through the TuneDB: rung {rung}, "
+          f"pick {r.method} {rec.timings[r.method]:.3f} us, against the "
+          f"§5.4 pick {paper} {rec.timings[paper]:.3f} us "
+          f"({rec.timings[paper] / rec.timings[r.method]:.2f}x); d "
+          f"{rec.d:.2f}, n {rec.n}; {card}")
+    if rung != "exact" or r.method != rec.method:
+        raise AssertionError(f"power law resolved {r.method} from {rung}")
+    engine.set_tunedb(None)
+    del power_law
+    torch.cuda.empty_cache()
+    return dict(launches=launches, worst=worst, threshold=thr,
+                eager_forward_ms=eager,
+                threshold_accuracy=acc, paper_accuracy=paper_acc,
+                speedups=speedups, records=len(rows),
+                power_law=dict(rung=rung, pick=r.method, paper_pick=paper,
+                               us=rec.timings))
 
 
 def online(cfg, params, prompt, unbatched, dev, card, reset_counts,
@@ -1846,6 +2310,7 @@ def main() -> int:
                                      moe_gemm, ops, rowsplit_spmm, sddmm)
     from repro_torch.launch import serve
     from repro_torch.models import model as M
+    from repro_torch.tune.timing import INNER
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2267,9 +2732,17 @@ def main() -> int:
                            card, reset_counts, read_counts)
     worst["rowsplit_spmm"] = max(worst["rowsplit_spmm"],
                                  served_online["max_abs"])
+    done("online", t0)
+
+    # ------------------------------------------------------------- tune --
+    t0 = phase("tune")
+    tuned = tune(cfg, params, prompt, logits, dev, card, reset_counts,
+                 read_counts)
+    for name, err in tuned["worst"].items():
+        worst[name] = max(worst[name], err)
     del params, logits
     torch.cuda.empty_cache()
-    done("online", t0)
+    done("tune", t0)
 
     # --------------------------------------------------------- training --
     t0 = phase("training")
@@ -2296,6 +2769,7 @@ def main() -> int:
         launches = {"serving": serving[kname],
                     "online": served_online["launches"]
                     if kname == "rowsplit_spmm" else 0,
+                    "tune": tuned["launches"].get(kname, 0),
                     "training": train.get(kname, 0),
                     "attention": attn["launches"]
                     if kname == "flash_attention" else 0,
@@ -2313,6 +2787,10 @@ def main() -> int:
             row["power_law"] = power_law
         if kname == "rowsplit_spmm":
             row["online"] = served_online
+        if kname in ("merge_spmm", "rowsplit_spmm"):
+            row["tune"] = {k: tuned[k] for k in (
+                "threshold", "threshold_accuracy", "paper_accuracy",
+                "speedups", "records", "power_law", "eager_forward_ms")}
         if kname == "moe_gemm":
             row["body"] = acc["body"]
         if kname == "flash_attention":
@@ -2336,7 +2814,12 @@ def main() -> int:
           "row-split's kernel once a length bucket), the online run "
           "(each bucket's warm eager call, plus each graph's replays times "
           "one eager forward's launches at its bucket; a capture records "
-          "its launches and runs none), the training runs "
+          "its launches and runs none), the tune phase (over the paper "
+          "suite, the crossover matrices and the served patterns, each "
+          "timed candidate's warm call plus its timing graph's replays "
+          f"times the {INNER} calls it captured, a capture running none; "
+          "and two serving runs with the TuneDB), "
+          "the training runs "
           f"({TRAIN_STEPS} steps of each method), the attention phase's "
           f"main-path run ({2 * len(FLASH_MODEL_SHAPES)} ops.flash_attention "
           f"calls) and the OLMoE generate run ({GEN_LEN + 1} forwards); "

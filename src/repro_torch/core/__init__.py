@@ -1,17 +1,18 @@
 """Core data types and the SpMM API of the PyTorch port."""
-from .config import ExecutionConfig, PlanPolicy, ResolvedPlan
+from .config import (DEFAULT_TUNEDB, ExecutionConfig, PlanPolicy,
+                     ResolvedPlan)
 from .csr import CSR, from_dense, power_law_csr, prune_to_csr, random_csr
 from .epilogue import Epilogue, apply_epilogue
-from .heuristic import PAPER_THRESHOLD, Heuristic
+from .heuristic import PAPER_THRESHOLD, Heuristic, calibrate
 from .matrix import SparseMatrix
 from .plan import PlanMeta, SpmmPlan, build_plan, pattern_fingerprint
 from .spmm import execute_plan, spmm
 
 __all__ = [
-    "ExecutionConfig", "PlanPolicy", "ResolvedPlan",
+    "DEFAULT_TUNEDB", "ExecutionConfig", "PlanPolicy", "ResolvedPlan",
     "CSR", "from_dense", "power_law_csr", "prune_to_csr", "random_csr",
     "Epilogue", "apply_epilogue",
-    "Heuristic", "PAPER_THRESHOLD",
+    "Heuristic", "PAPER_THRESHOLD", "calibrate",
     "SparseMatrix",
     "PlanMeta", "SpmmPlan", "build_plan", "pattern_fingerprint",
     "execute_plan", "spmm",

@@ -1,11 +1,11 @@
 """Plan policy vs. execution config (the reference's API v1 split).
 
 * :class:`PlanPolicy` — decided once per sparsity pattern, host-side:
-  which method (``"auto"`` resolves through the method registry's
-  heuristic cost hooks, the paper's §5.4 rule), static kernel parameters
-  (``t``, ``tl``, ``l_pad``), and whether to build the transpose plan.
-  :meth:`PlanPolicy.resolve` is the single choke point every plan request
-  funnels through.
+  which method (``"auto"`` resolves through the TuneDB ladder, then the
+  method registry's heuristic cost hooks, the paper's §5.4 rule), static
+  kernel parameters (``t``, ``tl``, ``l_pad``), and whether to build the
+  transpose plan.  :meth:`PlanPolicy.resolve` is the single choke point
+  every plan request funnels through.
 * :class:`ExecutionConfig` — per call: which implementation runs
   (``"cuda"``: the hand-written kernels; ``"torch"``: their plain
   versions; ``None``: by the operands' device), the fused
@@ -18,9 +18,11 @@ the VMEM K-tile cap) have no GPU meaning and are not carried over.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import torch
+
+from repro_torch.obs import metrics as _metrics
 
 from .epilogue import Epilogue
 from .heuristic import Heuristic
@@ -50,6 +52,34 @@ def torch_dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
+# Ladder-rung outcomes of PlanPolicy.resolve: explicit | exact | class |
+# calibrated | analytic.  Always on (plan time, not per execute).
+_resolve_total = _metrics.registry.counter(
+    "plan_resolve_total", "PlanPolicy.resolve outcomes by ladder rung",
+    labels=("rung", "method"))
+
+
+class _DefaultTuneDB:
+    """Sentinel: 'use the process-default TuneDB' (``engine.set_tunedb``).
+
+    Distinct from ``None``, which opts out of measured resolution and
+    falls back to the analytic heuristic.
+    """
+
+    _instance: _DefaultTuneDB | None = None
+
+    def __new__(cls):
+        if cls._instance is None:
+            cls._instance = super().__new__(cls)
+        return cls._instance
+
+    def __repr__(self) -> str:
+        return "DEFAULT_TUNEDB"
+
+
+DEFAULT_TUNEDB = _DefaultTuneDB()
+
+
 class ResolvedPlan(NamedTuple):
     """A fully pinned-down plan request (every static decision made)."""
 
@@ -64,10 +94,13 @@ class ResolvedPlan(NamedTuple):
 class PlanPolicy:
     """How to *plan*: method selection + pattern-static parameters.
 
-    All fields are host-side decisions captured at plan-build time and
-    hashed into the engine cache key.  ``method="auto"`` resolves through
-    the registry's heuristic cost hooks; explicit methods name a
-    registered ``MethodSpec`` (``repro_torch.kernels.registry``).
+    All fields are host-side decisions captured at plan-build time.
+    ``method="auto"`` resolves through the TuneDB ladder (exact pattern →
+    binned class → DB-calibrated threshold) and then the registry's
+    heuristic cost hooks; explicit methods name a registered
+    ``MethodSpec`` (``repro_torch.kernels.registry``).  ``tunedb``: a
+    ``repro_torch.tune.TuneDB``, ``None`` (no measured resolution), or
+    :data:`DEFAULT_TUNEDB` (the process default, ``engine.set_tunedb``).
     """
 
     method: str = "auto"
@@ -75,6 +108,7 @@ class PlanPolicy:
     tl: int | None = None           # rowsplit: row batch size
     l_pad: int | None = None        # rowsplit: static max row length
     heuristic: Heuristic | None = None
+    tunedb: Any = DEFAULT_TUNEDB    # TuneDB | None (opt out) | default
     with_transpose: bool = True     # build the backward (CSC) plan
 
     @classmethod
@@ -82,6 +116,13 @@ class PlanPolicy:
         """The policy that replays an existing plan's full statics."""
         return cls(method=meta.method, t=meta.t, tl=meta.tl,
                    l_pad=meta.l_pad, with_transpose=meta.has_transpose)
+
+    def resolved_tunedb(self):
+        """The TuneDB this policy actually consults (may be None)."""
+        if self.tunedb is DEFAULT_TUNEDB:
+            from repro_torch.engine import current_tunedb
+            return current_tunedb()
+        return self.tunedb
 
     def resolve(self, a) -> ResolvedPlan:
         """Pin down every pattern-static decision for a CSR (host-side).
@@ -91,14 +132,61 @@ class PlanPolicy:
         """
         from repro_torch.kernels import registry
 
-        method = self.method
+        method, t, l_pad = self.method, self.t, self.l_pad
+        heuristic = self.heuristic
+        tunedb = self.resolved_tunedb()
+        # Which ladder rung decides the method: explicit requests skip the
+        # ladder; "analytic" covers both the no-TuneDB heuristic and a
+        # caller's Heuristic.
+        rung = "explicit" if method != "auto" else "analytic"
+        if method == "auto" and tunedb is not None:
+            picked, db_rung, rec = tunedb.pick(
+                a, registered=registry.method_names())
+            if db_rung == "exact":
+                # Exact hit: replay the measured winner and tuned params.
+                method = picked
+                t = rec.t if t is None else t
+                l_pad = rec.l_pad if l_pad is None else l_pad
+                rung = "exact"
+            elif db_rung == "class":
+                method = picked
+                rung = "class"
+            elif heuristic is None:
+                heuristic = tunedb.heuristic()   # calibrated threshold
+                rung = "calibrated"
+        auto_resolved = method != self.method     # the ladder picked it
         if method == "auto":
-            method = registry.choose_auto(a, self.heuristic or Heuristic())
+            method = registry.choose_auto(a, heuristic or Heuristic())
+            auto_resolved = True
         spec = registry.get_method(method)
-        t, tl, l_pad, extra = spec.resolve_params(a, t=self.t, tl=self.tl,
-                                                  l_pad=self.l_pad)
+        try:
+            t, tl, l_pad, extra = spec.resolve_params(a, t=t, tl=self.tl,
+                                                      l_pad=l_pad)
+        except ValueError:
+            if not auto_resolved:
+                raise                             # the caller asked for it
+            # The ladder's winner rejects the caller's explicit params
+            # (an exact record replays "rowgroup", but the caller passed a
+            # global l_pad): an "auto" request falls back to the analytic
+            # choice among the core methods.
+            method = registry.choose_auto(a, heuristic or Heuristic())
+            spec = registry.get_method(method)
+            t, tl, l_pad, extra = spec.resolve_params(
+                a, t=self.t, tl=self.tl, l_pad=self.l_pad)
+            rung = "analytic"
+        _resolve_total.labels(rung=rung, method=method).inc()
         return ResolvedPlan(method=method, t=t, tl=tl, l_pad=l_pad,
                             extra=extra)
+
+
+def resolve_counts(since: dict | None = None) -> dict[tuple[str, str], int]:
+    """``plan_resolve_total`` as ``{(rung, method): count}``: so far, or
+    the increments since an earlier ``resolve_counts()`` snapshot."""
+    since = since or {}
+    now = {(c.labels["rung"], c.labels["method"]): c.value
+           for c in _resolve_total.children()}
+    return {key: n - since.get(key, 0) for key, n in sorted(now.items())
+            if n > since.get(key, 0)}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -52,6 +52,12 @@ class CSR:
     def row_lengths(self) -> torch.Tensor:
         return torch.diff(self.row_ptr)
 
+    def to(self, device) -> CSR:
+        """The same matrix on ``device`` (its arrays unchanged where they
+        already are there)."""
+        return CSR(self.row_ptr.to(device), self.col_ind.to(device),
+                   self.vals.to(device), self.shape)
+
     def to_dense(self) -> torch.Tensor:
         """Densify (oracle / small matrices only)."""
         m, k = self.shape

@@ -6,6 +6,12 @@ by every layer and call that presents the same mask.  Keys are content
 fingerprints of (row_ptr, col_ind) plus the resolved plan request and the
 device the plan lives on.  Counters (hits / misses / evictions) let callers
 assert that a hot path built no plan.
+
+Because the key holds the *resolved* request (method, ``t``, ``tl``,
+``l_pad``), not the policy, swapping the process-default TuneDB
+(:func:`set_tunedb`) can never serve a plan resolved against the old one:
+a DB that picks differently gives another key, one that picks alike
+shares the entry.
 """
 from __future__ import annotations
 
@@ -18,6 +24,36 @@ from repro_torch.core.csr import CSR
 from repro_torch.core.plan import SpmmPlan, build_plan, pattern_fingerprint
 
 DEFAULT_MAXSIZE = 256
+
+# Process-wide empirical tuning database (repro_torch.tune.TuneDB).  When
+# set, every "auto" plan request resolves its method through measurements
+# (exact pattern -> pattern class -> calibrated threshold) instead of the
+# paper's fixed K40c threshold.  Consulted at plan build only.
+_default_tunedb = None
+
+
+def set_tunedb(db) -> None:
+    """Install (or clear, with None) the process-default TuneDB."""
+    global _default_tunedb
+    _default_tunedb = db
+
+
+def current_tunedb():
+    return _default_tunedb
+
+
+def load_tunedb(path, **kw):
+    """Load a TuneDB from ``path`` and install it as the process default.
+
+    Forgiving like ``TuneDB.load``: a corrupt or mismatched file installs
+    an empty DB (with a warning), so plan building falls back to the
+    analytic heuristic; a missing file raises.
+    """
+    from repro_torch.tune.db import TuneDB
+
+    db = TuneDB.load(path, **kw)
+    set_tunedb(db)
+    return db
 
 
 @dataclasses.dataclass

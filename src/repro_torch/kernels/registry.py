@@ -8,11 +8,12 @@ and the executor need; ``core.config.PlanPolicy.resolve``,
 through this table.
 
 The spec keeps the reference's nine hooks.  This port fills the ones the
-planned and the plan-per-call (``inline``) paths use; ``tune_candidates``
-(the autotuner) and ``traffic`` (the static launch model) are None until
-the slices that port those consumers.  The built-in merge and row-split
-methods register here; the row-grouped method registers from
-``rowgroup_spmm``, which ``repro_torch.kernels`` imports.
+planned and the plan-per-call (``inline``) paths and the autotuner
+(``tune_candidates``, ``repro_torch.tune``) use; ``traffic`` (the static
+launch model) is None until the slice that ports its consumer.  The
+built-in merge and row-split methods register here; the row-grouped
+method registers from ``rowgroup_spmm``, which ``repro_torch.kernels``
+imports.
 """
 from __future__ import annotations
 
@@ -42,8 +43,9 @@ class MethodSpec:
     * ``inline(a, b, *, t, tl, l_pad, extra, impl) -> C``: the
       plan-per-call form, ``b (k, n) -> (m, n)``, structure built and
       executed with no cache (``spmm(plan="inline")``).
-    * ``tune_candidates``, ``traffic``: the reference's autotuner and
-      launch-model hooks.
+    * ``tune_candidates(a, wide) -> [dict]``: the static-parameter
+      candidates the autotuner times (``wide`` sweeps more of them).
+    * ``traffic``: the reference's launch-model hook.
     """
 
     name: str
@@ -119,6 +121,14 @@ def _merge_execute(meta, fwd, vals, b, *, impl, epilogue=None, bias=None,
                               out_dtype=out_dtype)
 
 
+def _merge_candidates(a, wide: bool) -> list[dict]:
+    # Every t stays inside the CUDA kernel's one-warp chunk (t <= 32).
+    cands = [dict(t=_merge.DEFAULT_T)]
+    if wide:
+        cands += [dict(t=c) for c in (8, 32) if c != _merge.DEFAULT_T]
+    return cands
+
+
 def _merge_inline(a, b, *, t, tl, l_pad, extra, impl):
     return _ops.merge_spmm(a, b, t=t, impl=impl)
 
@@ -150,6 +160,16 @@ def _rowsplit_execute(meta, fwd, vals, b, *, impl, epilogue=None,
                                  out_dtype=out_dtype)
 
 
+def _rowsplit_candidates(a, wide: bool) -> list[dict]:
+    lmax = max(_max_row_len(a), 1)
+    cands = [dict(l_pad=lmax)]
+    if wide:
+        up8 = -(-lmax // 8) * 8
+        if up8 != lmax:
+            cands.append(dict(l_pad=up8))    # 8-aligned ELL rows
+    return cands
+
+
 def _rowsplit_inline(a, b, *, t, tl, l_pad, extra, impl):
     return _ops.rowsplit_spmm(a, b, l_pad=l_pad, tl=tl, impl=impl)
 
@@ -162,7 +182,7 @@ register_method(MethodSpec(
     execute=_merge_execute,
     inline=_merge_inline,
     resolve_params=_merge_resolve,
-    tune_candidates=None,
+    tune_candidates=_merge_candidates,
     # The paper's §5.4 rule as a cost: d below the threshold prefers merge.
     heuristic_rank=lambda a, h: h.mean_row_length(a) - h.threshold,
     traffic=None,
@@ -176,7 +196,7 @@ register_method(MethodSpec(
     execute=_rowsplit_execute,
     inline=_rowsplit_inline,
     resolve_params=_rowsplit_resolve,
-    tune_candidates=None,
+    tune_candidates=_rowsplit_candidates,
     heuristic_rank=lambda a, h: h.threshold - h.mean_row_length(a),
     traffic=None,
 ))

@@ -192,7 +192,7 @@ _registry.register_method(_registry.MethodSpec(
     execute=_execute,
     inline=_inline,
     resolve_params=_resolve,
-    tune_candidates=None,
-    heuristic_rank=None,          # opt-in: an explicit method= only
+    tune_candidates=lambda a, wide: [dict()],
+    heuristic_rank=None,          # opt-in: explicit method= or TuneDB hits
     traffic=None,
 ))

@@ -42,6 +42,9 @@ RESIDENT_WARPS_PER_SM = 32
 MAX_PARTS = 8
 MIN_PART_GROUPS = 4
 
+# Slots of one block of rows that plan_rowsplit_structure fills at once.
+ELL_BLOCK_SLOTS = 1 << 26
+
 # Launches of the row-split kernel, one per rowsplit_spmm_cuda call, and
 # the same launches by the body that ran.
 LAUNCHES = 0
@@ -90,8 +93,21 @@ def plan_rowsplit_structure(a: CSR, *, l_pad: int, tl: int = DEFAULT_TL,
     re-applied per call through ``slot_nz``.
     """
     l = max(tl, tl * (-(-l_pad // tl)))
-    rows = torch.arange(a.m, dtype=torch.int64, device=a.device)
-    return ell_slots(a, rows, l, tm=tm)
+    m_pad = tm * (-(-a.m // tm))
+    cols = torch.zeros((m_pad, l), dtype=torch.int32, device=a.device)
+    slot_nz = torch.full((m_pad, l), a.nnz_pad, dtype=torch.int32,
+                         device=a.device)
+    # ell_slots' int64 (rows, l) temporaries are 8x the block they fill:
+    # a block of rows at a time keeps them near ELL_BLOCK_SLOTS slots, so
+    # a skewed matrix whose ELL fills much of the card still plans.
+    block = max(1, ELL_BLOCK_SLOTS // l)
+    for r0 in range(0, a.m, block):
+        rows = torch.arange(r0, min(r0 + block, a.m), dtype=torch.int64,
+                            device=a.device)
+        part = ell_slots(a, rows, l, tm=1)
+        cols[r0:r0 + rows.numel()] = part["cols"]
+        slot_nz[r0:r0 + rows.numel()] = part["slot_nz"]
+    return dict(cols=cols, slot_nz=slot_nz)
 
 
 def row_parts(m: int, n: int, l: int, batch: int, sm_count: int) -> int:

@@ -7,6 +7,7 @@ requests over shape-bucket programs.
         --device cpu
     python -m repro_torch.launch.serve --prune-ffn 0.25
     python -m repro_torch.launch.serve --prune-ffn 0.25 --spmm-method merge
+    python -m repro_torch.launch.serve --prune-ffn 0.25 --tunedb tune.json
     python -m repro_torch.launch.serve --prune-ffn 0.25 --microbatch 2
     python -m repro_torch.launch.serve --prune-ffn 0.25 --serve
     python -m repro_torch.launch.serve --smoke --prune-ffn 0.25 --device cpu
@@ -19,8 +20,10 @@ the engine cache, and the forward then runs every FFN matmul as a planned
 SpMM — the hand-written CUDA kernels on the card, their plain versions on
 the CPU.  ``--serve`` serves a Poisson stream of ragged requests through
 ``repro_torch.serving.Server``: one program a ``(batch, length)`` bucket,
-a CUDA graph on the card, all built at warmup.  Device meshes, TuneDB-driven
-plans and trace export are later slices of the port; the CLI rejects their
+a CUDA graph on the card, all built at warmup.  ``--tunedb`` loads a TuneDB
+(``python -m repro_torch.tune``) before the pruned-FFN plans are built, so
+"auto" plans resolve their method from its measurements.  Device meshes
+and trace export are later slices of the port; the CLI rejects their
 flags.
 """
 from __future__ import annotations
@@ -31,9 +34,10 @@ import time
 
 import torch
 
-from repro_torch import obs
+from repro_torch import engine, obs
 from repro_torch.configs import ARCHS, get_config, get_smoke_config
 from repro_torch.core import PlanPolicy
+from repro_torch.core.config import resolve_counts
 from repro_torch.engine import cache_stats
 from repro_torch.kernels import registry
 from repro_torch.models import layers as L
@@ -290,7 +294,13 @@ def main(argv=None):
     ap.add_argument("--spmm-method", default="auto",
                     choices=("auto",) + registry.method_names(),
                     help="force the SpMM kernel method of the pruned-FFN "
-                    "plans ('auto': the paper's §5.4 rule)")
+                    "plans ('auto': the TuneDB ladder with --tunedb, else "
+                    "the paper's §5.4 rule)")
+    ap.add_argument("--tunedb", default="", metavar="PATH",
+                    help="TuneDB JSON (python -m repro_torch.tune) of this "
+                    "device: 'auto' pruned-FFN plans resolve their method "
+                    "from its measurements instead of the paper's fixed "
+                    "threshold")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; 'cpu' runs the "
                     "kernels' plain versions)")
@@ -321,7 +331,6 @@ def main(argv=None):
                     "cache counters) here on exit")
     # The reference's flags of paths this port has not reached yet.
     later = {"--mesh": "sharded plans",
-             "--tunedb": "TuneDB-driven plans",
              "--trace-out": "trace export"}
     for flag in later:
         ap.add_argument(flag, nargs="?", const=True, default=None,
@@ -339,6 +348,7 @@ def main(argv=None):
             ("--serve", args.serve),
             ("--microbatch", args.microbatch != 0),
             ("--spmm-method", args.spmm_method != "auto"),
+            ("--tunedb", bool(args.tunedb)),
         ) if on]
         if dead:
             ap.error(f"{', '.join(dead)}: no effect without --prune-ffn "
@@ -358,6 +368,12 @@ def main(argv=None):
     prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            generator=gen, device=device)
     if args.prune_ffn > 0.0:
+        if args.tunedb:
+            from repro_torch.tune import backend_key
+            db = engine.load_tunedb(args.tunedb, backend=backend_key(device))
+            print(f"[serve] tunedb {args.tunedb}: backend={db.backend} "
+                  f"entries={len(db)} threshold={db.threshold}")
+            resolved = resolve_counts()
         policy = PlanPolicy(method=args.spmm_method)
         if args.serve:
             serve_online(cfg, params, args.prune_ffn, batch=args.batch,
@@ -371,6 +387,10 @@ def main(argv=None):
                                microbatch=args.microbatch, policy=policy)
             print(f"pruned-FFN logits {tuple(rep.logits.shape)}; "
                   f"argmax@last {rep.logits[:, -1].argmax(-1).tolist()}")
+        if args.tunedb:
+            rungs = {f"{rung}/{method}": n for (rung, method), n in
+                     resolve_counts(since=resolved).items()}
+            print(f"[serve] plan_resolve_total of this run: {rungs}")
         _export_metrics(args)
         return 0
     _sync(device)

@@ -58,7 +58,8 @@ def test_importing_the_port_leaves_jax_out():
     code = ("import sys, repro_torch.launch.serve, repro_torch.convert,"
             " repro_torch.runtime.steps, repro_torch.models.moe,"
             " repro_torch.kernels.moe_gemm,"
-            " repro_torch.kernels.flash_attention;"
+            " repro_torch.kernels.flash_attention, repro_torch.tune,"
+            " repro_torch.tune.cli, repro_torch.matrices;"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'));"
             "print(bad); raise SystemExit(1 if bad else 0)")

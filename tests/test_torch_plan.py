@@ -106,6 +106,20 @@ def test_rowsplit_structure_matches(kind):
 
 
 @pytest.mark.parametrize("kind", sorted(KINDS))
+def test_rowsplit_structure_in_row_blocks_matches(kind, monkeypatch):
+    """The planner fills the ELL a block of rows at a time (so a skewed
+    matrix's int64 temporaries fit the card); blocks of a few rows give
+    the reference's structure all the same."""
+    monkeypatch.setattr(trowsplit, "ELL_BLOCK_SLOTS", 96)
+    ja, ta = _pair(kind)
+    lengths = np.diff(np.asarray(ja.row_ptr))
+    l_pad = max(int(lengths.max()) if lengths.size else 0, 1)
+    _eq_dict(jrowsplit.plan_rowsplit_structure(ja, l_pad=l_pad),
+             trowsplit.plan_rowsplit_structure(ta, l_pad=l_pad),
+             f"rowsplit blocks[{kind}]")
+
+
+@pytest.mark.parametrize("kind", sorted(KINDS))
 def test_transpose_pattern_matches(kind):
     ja, ta = _pair(kind)
     jt, jperm = jplan.transpose_pattern(ja)

@@ -111,7 +111,7 @@ def test_main_default_args_smoke_on_cpu():
 
 
 @pytest.mark.parametrize("argv", [
-    ["--smoke", "--device", "cpu", "--tunedb", "tune.json"],
+    ["--smoke", "--device", "cpu", "--mesh", "2"],
     ["--smoke", "--device", "cpu", "--prune-ffn", "0.25", "--mesh", "2"],
     ["--smoke", "--device", "cpu", "--prune-ffn", "0.25", "--trace-out",
      "trace.json"],
