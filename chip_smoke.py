@@ -100,6 +100,25 @@ NVIDIA H100 (sm_90a) and the CUDA toolkit.  Phases, each timed:
               busy share and the SDDMMs' device time, peak memory, plans
               built, launches per step and their bodies, and the kernel
               step's gradients against the plain step's;
+   dense    — the dense trainer (``runtime.steps.make_train_step``):
+   training   Llama-3.2-1B at full width (16 layers, random f32 params
+              from a seed, bf16 compute, SyntheticLM 8 x 128, AdamW lr
+              3e-4 warmup 20, remat, loss chunk 128): the state reckoned
+              against the card, one warm step and 5 timed (host ms, loss,
+              nll, grad norm, lr, skipped 0), tokens/s, device busy and
+              idle share of a profiled step with its top device ops, the
+              chunked loss's f32 logits alone, peak memory, the
+              optimizer's bytes and the matmuls' work as floors; 10 steps
+              on one fixed batch at lr 1e-3 (the loss must fall);
+              OLMoE-1B-7B cut to 2 of 16 layers (3 steps, 0 grouped-GEMM
+              launches, every expert weight's gradient non-zero); both
+              smoke configs one step on the card against the CPU
+              (microbatches 1 and 2, int8 error feedback on and off, bf16
+              bar); smoke Llama saved, restored bit-equal into a fresh
+              state and resumed against a straight run; ``python -m
+              repro_torch.launch.train`` at full width (3 steps) and
+              twice at smoke size on one checkpoint directory (the second
+              resumes); none of the five kernels may launch;
 7. attention — the flash attention kernel against its plain version on
               the reference's sweep, its ragged case, the wgmma body's tile
               edges (ragged s at b = 2, s = 129, GQA g = 4 at dh 128) and
@@ -137,6 +156,7 @@ import io
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -464,7 +484,7 @@ def check_close(what, got, want, tol):
     if not torch.allclose(g, w, **tol):
         bad = ~torch.isclose(g, w, **tol)
         raise AssertionError(
-            f"{what}: kernel disagrees with its plain version (tol {tol}): "
+            f"{what}: disagrees with its reference (tol {tol}): "
             f"{int(bad.sum())} of {g.numel()} elements, max |d| "
             f"{d.nan_to_num(float('inf')).max().item():.3e}")
     return d.max().item(), (d / (tol["atol"] + tol["rtol"] * w.abs())
@@ -1622,20 +1642,8 @@ def training(cfg, dev, card, reset_counts, read_counts) -> dict:
 
 def to_device(tree, dev):
     """A copy of a params tree (dicts, lists, tensors) on ``dev``."""
-    if isinstance(tree, dict):
-        return {k: to_device(v, dev) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [to_device(v, dev) for v in tree]
-    return tree.to(dev)
-
-
-def leaves(tree):
-    """The tensors of a params tree (dicts, lists, tensors)."""
-    if isinstance(tree, dict):
-        return [t for v in tree.values() for t in leaves(v)]
-    if isinstance(tree, list):
-        return [t for v in tree for t in leaves(v)]
-    return [tree]
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.to(dev), tree)
 
 
 def skewed_sizes(gen, n_experts, n_blocks, tt, dev):
@@ -1888,6 +1896,7 @@ def decode(dev, card, reset_counts, read_counts) -> dict:
     the plain version; the smoke OLMoE on the card against the CPU; and
     Llama-3.2-1B (the GQA decode path, no kernel of ours) timed.  Returns
     the grouped GEMM's launches in the OLMoE run and its worst |error|."""
+    from repro_torch import tree
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.engine import clear_cache
     from repro_torch.kernels import moe_gemm
@@ -1905,7 +1914,7 @@ def decode(dev, card, reset_counts, read_counts) -> dict:
           f"weights from seed {SEED}; batch {SERVE_BATCH} x prompt "
           f"{SERVE_PROMPT} x gen {GEN_LEN}")
     params = M.init_params(cfg, SEED, dev)
-    n_params = sum(t.numel() for t in leaves(params))
+    n_params = sum(t.numel() for t in tree.leaves(params))
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     prompt = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
                            generator=g, device=dev)
@@ -2292,6 +2301,397 @@ def print_ptxas(log: str) -> None:
                     print(f"ptxas note: {line.strip()}")
             if not found:
                 raise AssertionError(f"ptxas reported no {mangled}")
+
+
+# ----------------------------------------------------- dense training --
+# The train CLI's defaults: batch 8 x 128, lr 3e-4, warmup 20, 100 steps.
+DENSE_BATCH, DENSE_SEQ, DENSE_CHUNK = 8, 128, 128
+DENSE_LR, DENSE_WARMUP, DENSE_TOTAL = 3e-4, 20, 100
+DENSE_STEPS = 5                    # timed, after one warm step
+FIXED_STEPS, FIXED_LR = 10, 1e-3   # one fixed batch, no warmup
+OLMOE_CUT, OLMOE_STEPS = 2, 3      # OLMoE-1B-7B at 2 of its 16 layers
+# Card against CPU, and a resumed run against a straight one: bf16
+# compute, so the bf16 bar.
+DENSE_TOL = dict(rtol=2e-2, atol=2e-2)
+# The card's backward against the CPU's at f32 compute (TF32 off): the
+# reference's gradient bar (tests/test_spmm_grad.py).
+DENSE_GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
+# The card's optimizer against the CPU's on equal grads, at an lr whose
+# update (~1e-2 an element) stands far above the bar: the f32 bar.
+DENSE_OPT_TOL = dict(rtol=2e-5, atol=2e-5)
+DENSE_OPT_LR = 1e-2
+# Peak rates of one H100 SXM (data sheet, dense): bf16 tensor cores, and
+# float32 outside the tensor cores (TF32 is off).
+BF16_FLOP_S, F32_FLOP_S = 989e12, 67e12
+
+
+def tree_gap(what, got, want, tol) -> float:
+    """:func:`check_close` over every leaf of two trees, on the CPU;
+    returns the largest |d|."""
+    from repro_torch.tree import leaves, paths
+    return max(check_close(f"{what} {p}", g.cpu(), w.cpu(), tol)[0]
+               for p, g, w in zip(paths(want), leaves(got), leaves(want),
+                                  strict=True))
+
+
+def bit_equal(a, b) -> bool:
+    from repro_torch.tree import leaves
+    return all(x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu())
+               for x, y in zip(leaves(a), leaves(b), strict=True))
+
+
+def dense_batches(cfg, dev, steps, b=None, s=None):
+    """The first ``steps`` SyntheticLM batches (b x s, by default the
+    phase's) on ``dev``."""
+    from repro_torch.data import DataConfig, SyntheticLM
+    src = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                 seq_len=s or DENSE_SEQ,
+                                 global_batch=b or DENSE_BATCH, seed=SEED))
+    return [{k: v.to(dev) for k, v in src.batch_at(i).items()}
+            for i in range(steps)]
+
+
+def run_steps(step, state, batches, times=None):
+    """``step`` over ``batches``; returns the state and each step's
+    metrics as floats (read after a synchronise)."""
+    out = []
+    for batch in batches:
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        if times is not None:
+            times.append((time.perf_counter() - t0) * 1e3)
+        out.append({k: v.item() for k, v in m.items()})
+    return state, out
+
+
+def dense_llama(dev, card) -> None:
+    """Llama-3.2-1B at full width: timed steps, the profile, the floors,
+    then a falling loss on one fixed batch."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.losses import chunked_cross_entropy
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps
+    from repro_torch.tree import leaves as flat
+    cfg = get_config("llama3.2-1b")
+    torch.cuda.empty_cache()
+    state = steps.init_train_state(cfg, SEED, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    n = sum(p.numel() for p in flat(state["params"]))
+    tokens = DENSE_BATCH * DENSE_SEQ
+    total = torch.cuda.get_device_properties(dev).total_memory
+    print(f"model {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
+          f"vocab {cfg.vocab_size}, f32 params from seed {SEED}, bf16 "
+          f"compute; {n / 1e6:.1f} M params; params + m + v "
+          f"{12 * n / 1e9:.1f} GB, grads {4 * n / 1e9:.1f} GB, new params "
+          f"+ m + v {12 * n / 1e9:.1f} GB (a step is functional) of the "
+          f"card's {total / 1e9:.1f} GB; SyntheticLM {DENSE_BATCH} x "
+          f"{DENSE_SEQ}, AdamW lr {DENSE_LR} warmup {DENSE_WARMUP}, remat, "
+          f"loss chunk {DENSE_CHUNK}, TF32 off")
+    if 28 * n > total:
+        raise AssertionError("the training state does not fit the card")
+    opt = adamw.AdamWConfig(learning_rate=DENSE_LR,
+                            warmup_steps=DENSE_WARMUP,
+                            total_steps=DENSE_TOTAL)
+    step = steps.make_train_step(cfg, opt, loss_chunk=DENSE_CHUNK)
+    batches = dense_batches(cfg, dev, DENSE_STEPS + 1)
+    times = []
+    state, metrics = run_steps(step, state, batches, times)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    for i, (ms, m) in enumerate(zip(times, metrics)):
+        print(f"dense step {i}{' (warm-up)' if i == 0 else ''}: host "
+              f"{ms:.3f} ms synchronised; loss {m['loss']:.6f} nll "
+              f"{m['nll']:.6f} grad norm {m['grad_norm']:.4f} lr "
+              f"{m['lr']:.3e} skipped {m['skipped']:.0f}")
+        if m["skipped"] or not math.isfinite(m["loss"]):
+            raise AssertionError(f"dense step {i}: {m}")
+    warm = statistics.median(times[1:])
+    busy = profile_device(lambda: step(state, batches[-1]), top=12)
+    # The loss alone at the step's shapes: forward, the checkpoint's
+    # recompute and the backward of the f32 logits product.
+    labels = batches[0]["labels"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    h = torch.randn(*labels.shape, cfg.d_model, generator=gen,
+                    device=dev).to(cfg.cdtype).requires_grad_(True)
+    w = state["params"]["embed"].detach().requires_grad_(True)
+
+    def loss_fb():
+        nll, _ = chunked_cross_entropy(h, w, labels, chunk=DENSE_CHUNK)
+        return torch.autograd.grad(nll, (h, w))
+
+    print("the chunked loss alone (forward, recompute, backward):")
+    loss_ms = profile_device(loss_fb, top=4)
+    print("forward and backward alone (steps.loss_and_grads):")
+    fb_ms = profile_device(lambda: steps.loss_and_grads(
+        state["params"], cfg, batches[-1], loss_chunk=DENSE_CHUNK), top=4)
+    # The moments stand in for the grads: the update's time does not
+    # depend on their values.
+    print("the optimizer alone (adamw.apply_updates):")
+    opt_ms = profile_device(lambda: adamw.apply_updates(
+        state["params"], state["opt"]["m"], state["opt"], opt), top=4)
+    loss_flop = 8 * tokens * cfg.d_model * cfg.vocab_size
+    opt_bytes = 28 * n
+    mm_flop = 6 * n * tokens
+    print(f"dense Llama-3.2-1B step: warm {warm:.3f} ms host (median of "
+          f"{DENSE_STEPS}; warm-up {times[0]:.3f}), "
+          f"{tokens / (warm / 1e3):.1f} tokens/s; device busy {busy:.3f} "
+          f"ms, idle share {1 - busy / warm:.3f}; peak memory {peak:.3f} "
+          f"GiB; forward + backward {fb_ms:.3f} device ms, optimizer "
+          f"{opt_ms:.3f} ({opt_ms / (opt_bytes / HBM_BYTES_PER_S * 1e3):.2f}"
+          f"x its floor); the loss's f32 logits {loss_ms:.3f} device ms "
+          f"({loss_ms / busy:.3f} of busy; {loss_flop / 1e12:.3f} TFLOP, "
+          f"floor {loss_flop / F32_FLOP_S * 1e3:.3f} ms at 67 TFLOP/s); "
+          f"floors: optimizer 28 B a param = {opt_bytes / 1e9:.2f} GB, "
+          f"{opt_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s; "
+          f"matmuls 6 N tokens = {mm_flop / 1e12:.3f} TFLOP, "
+          f"{mm_flop / BF16_FLOP_S * 1e3:.3f} ms at 989 TFLOP/s; {card}")
+    del state, h, w
+    torch.cuda.empty_cache()
+    state = steps.init_train_state(cfg, SEED, device=dev)
+    fixed = adamw.AdamWConfig(learning_rate=FIXED_LR, warmup_steps=0,
+                              total_steps=FIXED_STEPS)
+    step = steps.make_train_step(cfg, fixed, loss_chunk=DENSE_CHUNK)
+    state, metrics = run_steps(step, state, batches[:1] * FIXED_STEPS)
+    losses = [m["loss"] for m in metrics]
+    print(f"dense fixed batch, lr {FIXED_LR}, no warmup, {FIXED_STEPS} "
+          f"steps: loss first {losses[0]:.6f}, last {losses[-1]:.6f} ("
+          + ", ".join(f"{v:.4f}" for v in losses) + f"); {card}")
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"dense fixed batch: the loss did not fall: "
+                             f"{losses}")
+    del state, step, batches
+    torch.cuda.empty_cache()
+
+
+def dense_olmoe(dev, card, read_counts) -> None:
+    """OLMoE-1B-7B cut to OLMOE_CUT layers: steps through the batched
+    experts, no grouped-GEMM launch, every expert weight's gradient."""
+    from repro_torch.configs import get_config
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps
+    from repro_torch.tree import leaves as flat
+    full = get_config("olmoe-1b-7b")
+    cfg = dataclasses.replace(full, num_layers=OLMOE_CUT,
+                              segments=((("moe",), OLMOE_CUT),))
+    torch.cuda.empty_cache()
+    state = steps.init_train_state(cfg, SEED, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    n = sum(p.numel() for p in flat(state["params"]))
+    per_layer = (n - 2 * full.vocab_size * full.d_model
+                 - full.d_model) / OLMOE_CUT
+    n_full = n + per_layer * (full.num_layers - OLMOE_CUT)
+    print(f"model {cfg.name} cut to {OLMOE_CUT} of {full.num_layers} "
+          f"layers, published widths ({full.num_experts} experts top-"
+          f"{full.top_k}, d {full.d_model}, d_ff {full.d_ff}): {n / 1e6:.1f} "
+          f"M params; at full depth {n_full / 1e9:.2f} B, whose f32 params, "
+          f"m, v and grads take {16 * n_full / 1e9:.1f} GB, more than the "
+          f"card holds")
+    step = steps.make_train_step(
+        cfg, adamw.AdamWConfig(learning_rate=DENSE_LR,
+                               warmup_steps=DENSE_WARMUP,
+                               total_steps=DENSE_TOTAL),
+        loss_chunk=DENSE_CHUNK)
+    batches = dense_batches(cfg, dev, OLMOE_STEPS)
+    before = read_counts()["moe_gemm"]
+    times = []
+    new, metrics = run_steps(step, state, batches, times)
+    _, _, grads = steps.loss_and_grads(state["params"], cfg, batches[0],
+                                       loss_chunk=DENSE_CHUNK)
+    torch.cuda.synchronize()
+    launches = read_counts()["moe_gemm"] - before
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    zero = [f"blocks/{i}/moe/{k}" for i, blk in enumerate(grads["blocks"])
+            for k in ("router", "w1", "w3", "w2")
+            if blk["moe"][k] is None or not blk["moe"][k].abs().max() > 0]
+    print(f"dense OLMoE cut: host ms " + ", ".join(f"{t:.3f}" for t in times)
+          + "; losses " + ", ".join(f"{m['loss']:.6f}" for m in metrics)
+          + f"; aux {metrics[-1]['aux']:.6f}; skipped "
+          f"{sum(m['skipped'] for m in metrics):.0f}; peak memory "
+          f"{peak:.3f} GiB; grouped-GEMM launches {launches}; expert "
+          f"weights with a zero or missing gradient: {zero or 'none'} (of "
+          f"{4 * OLMOE_CUT}); {card}")
+    if launches or zero or any(m["skipped"] for m in metrics):
+        raise AssertionError("dense OLMoE cut: the batched experts did not "
+                             "carry the step")
+    del state, new, grads, step, batches
+    torch.cuda.empty_cache()
+
+
+def dense_smoke_parity(dev) -> float:
+    """Both smoke configs, card against CPU from the same params and batch:
+    the f32 gradients of ``steps.loss_and_grads`` at the gradient bar;
+    ``adamw.apply_updates`` on those equal grads at lr DENSE_OPT_LR at the
+    f32 bar; and one bf16 step, microbatches 1 and 2, with and without int8
+    error feedback, its loss, grad norm and params at the bf16 bar.
+    Returns the largest |d| of the step's params."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch import tree
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps
+    worst = 0.0
+    for arch in ("llama3.2-1b", "olmoe-1b-7b"):
+        cfg = get_smoke_config(arch)
+        cpu_b = dense_batches(cfg, "cpu", 1, b=4, s=32)[0]
+        dev_b = {k: v.to(dev) for k, v in cpu_b.items()}
+        f32 = dataclasses.replace(cfg, compute_dtype="float32")
+        cpu_s = steps.init_train_state(f32, SEED, device="cpu")
+        want_l, _, want_g = steps.loss_and_grads(cpu_s["params"], f32, cpu_b,
+                                                 loss_chunk=16)
+        got_l, _, got_g = steps.loss_and_grads(
+            to_device(cpu_s["params"], dev), f32, dev_b, loss_chunk=16)
+        g_gap = tree_gap(f"dense smoke {arch} f32 grads", got_g, want_g,
+                         DENSE_GRAD_TOL)
+        check_close(f"dense smoke {arch} f32 loss", got_l.cpu(), want_l,
+                    DENSE_GRAD_TOL)
+        opt = adamw.AdamWConfig(learning_rate=DENSE_OPT_LR, warmup_steps=0,
+                                total_steps=10)
+        want_p, want_o, _ = adamw.apply_updates(cpu_s["params"], want_g,
+                                                cpu_s["opt"], opt)
+        got_p, got_o, _ = adamw.apply_updates(
+            to_device(cpu_s["params"], dev), to_device(want_g, dev),
+            to_device(cpu_s["opt"], dev), opt)
+        o_gap = max(tree_gap(f"dense smoke {arch} optimizer {k}", got, want,
+                             DENSE_OPT_TOL)
+                    for k, got, want in (("params", got_p, want_p),
+                                         ("m", got_o["m"], want_o["m"]),
+                                         ("v", got_o["v"], want_o["v"])))
+        moved = max((a - b).abs().max().item() for a, b in zip(
+            tree.leaves(want_p), tree.leaves(cpu_s["params"])))
+        print(f"dense smoke {arch}: card vs CPU f32 grads max |d| "
+              f"{g_gap:.3e} (tol {DENSE_GRAD_TOL}); optimizer on equal "
+              f"grads at lr {DENSE_OPT_LR}: params, m, v max |d| "
+              f"{o_gap:.3e} (tol {DENSE_OPT_TOL}), largest update "
+              f"{moved:.3e}")
+        for comp in ("none", "int8_ef"):
+            cpu_s = steps.init_train_state(cfg, SEED, grad_compression=comp,
+                                           device="cpu")
+            for mb in (1, 2):
+                step = steps.make_train_step(
+                    cfg, adamw.AdamWConfig(), microbatches=mb,
+                    loss_chunk=16, grad_compression=comp)
+                b = {k: v.reshape(mb, -1, v.shape[-1]) if mb > 1 else v
+                     for k, v in cpu_b.items()}
+                want_s, want_m = step(cpu_s, b)
+                got_s, got_m = step(to_device(cpu_s, dev),
+                                    {k: v.to(dev) for k, v in b.items()})
+                what = f"dense smoke {arch} mb {mb} {comp}"
+                gap = tree_gap(what, got_s["params"], want_s["params"],
+                               DENSE_TOL)
+                for k in ("loss", "grad_norm"):
+                    check_close(f"{what} {k}", got_m[k].cpu(), want_m[k],
+                                DENSE_TOL)
+                print(f"{what}: card vs CPU loss {got_m['loss'].item():.6f}"
+                      f" / {want_m['loss'].item():.6f}, grad norm "
+                      f"{got_m['grad_norm'].item():.6f} / "
+                      f"{want_m['grad_norm'].item():.6f}, params max |d| "
+                      f"{gap:.3e} (tol {DENSE_TOL})")
+                worst = max(worst, gap)
+    return worst
+
+
+def dense_resume(dev) -> None:
+    """Smoke Llama: 4 steps straight against 2, save, restore into a fresh
+    state and 2 more."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps
+    cfg = get_smoke_config("llama3.2-1b")
+    step = steps.make_train_step(cfg, adamw.AdamWConfig(
+        learning_rate=DENSE_LR, warmup_steps=DENSE_WARMUP, total_steps=4),
+        loss_chunk=16)
+    batches = dense_batches(cfg, dev, 4, b=4, s=32)
+    start = steps.init_train_state(cfg, SEED, device=dev)
+    straight, m_straight = run_steps(step, start, batches)
+    half, m_first = run_steps(step, start, batches[:2])
+    ckpt = os.path.join(SRC, "repro_torch", "build", "dense_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        mgr = CheckpointManager(ckpt, keep=2)
+        mgr.save(2, half)
+        fresh = steps.init_train_state(cfg, SEED + 1, device=dev)
+        restored, at, _ = mgr.restore_latest(fresh)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    if at != 2 or not bit_equal(restored, half):
+        raise AssertionError("dense resume: the restored state is not the "
+                             "saved one bit for bit")
+    resumed, m_rest = run_steps(step, restored, batches[2:])
+    losses = [m["loss"] for m in m_first + m_rest]
+    want = [m["loss"] for m in m_straight]
+    same = bit_equal(resumed, straight) and losses == want
+    gap = tree_gap("dense resume params", resumed["params"],
+                   straight["params"], DENSE_TOL)
+    if not all(math.isclose(a, b, rel_tol=DENSE_TOL["rtol"],
+                            abs_tol=DENSE_TOL["atol"])
+               for a, b in zip(losses, want)):
+        raise AssertionError(f"dense resume: losses {losses} vs {want}")
+    print(f"dense resume (smoke Llama, saved at step 2, restored into a "
+          f"fresh state): restored state bit-equal to the saved one; "
+          f"resumed losses " + ", ".join(f"{v:.6f}" for v in losses)
+          + " vs straight " + ", ".join(f"{v:.6f}" for v in want)
+          + f"; resumed run bit-equal to the straight one: {same} "
+          f"(params max |d| {gap:.3e})")
+
+
+def dense_cli() -> None:
+    """The train CLI as a subprocess: full width with no checkpoint, then
+    a smoke run twice on one checkpoint directory."""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    ckpt = os.path.join(SRC, "repro_torch", "build", "dense_cli_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    runs = [["--arch", "llama3.2-1b", "--steps", "3", "--log-every", "1"],
+            ["--smoke", "--ckpt-dir", ckpt, "--steps", "4"],
+            ["--smoke", "--ckpt-dir", ckpt, "--steps", "6"]]
+    try:
+        for i, args in enumerate(runs):
+            cmd = [sys.executable, "-m", "repro_torch.launch.train", *args]
+            t0 = time.perf_counter()
+            out = subprocess.run(cmd, capture_output=True, text=True,
+                                 env=env, cwd=ROOT, timeout=600)
+            dt = time.perf_counter() - t0
+            print(f"$ {' '.join(cmd[1:])}  -> exit {out.returncode} in "
+                  f"{dt:.1f}s")
+            print("  " + "\n  ".join(out.stdout.strip().splitlines()[-5:]))
+            if out.returncode:
+                print(out.stderr[-3000:], file=sys.stderr)
+                raise AssertionError(f"train CLI exited {out.returncode}")
+            if i == 2 and "[train] resumed from step 4" not in out.stdout:
+                raise AssertionError("train CLI: the second smoke run did "
+                                     "not resume")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+
+def dense_training(dev, card, reset_counts, read_counts) -> dict:
+    """The dense trainer (``runtime.steps.make_train_step``, the train
+    CLI): its path launches none of the five kernels; returns their
+    launches over the phase's in-process runs (the Llama steps and
+    profiles, the OLMoE cut, the smoke parity and the resume), all 0,
+    checked.  The CLI runs are subprocesses, whose launches these
+    counts do not see."""
+    from repro_torch.engine import clear_cache
+    clear_cache()               # earlier phases' plans
+    torch.cuda.empty_cache()
+    print(f"device memory held before the phase: "
+          f"{torch.cuda.memory_allocated(dev) / 2**30:.3f} GiB")
+    reset_counts()
+    t0 = time.perf_counter()
+    dense_llama(dev, card)
+    llama = read_counts()
+    print(f"[dense training] Llama part {time.perf_counter() - t0:.1f}s; "
+          f"launches {llama}")
+    dense_olmoe(dev, card, read_counts)
+    worst = dense_smoke_parity(dev)
+    dense_resume(dev)
+    counts = read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"dense training launched kernels: {counts}")
+    dense_cli()
+    print(f"dense training launches (in-process runs; the CLI "
+          f"subprocesses are not counted): {counts}; card vs CPU worst "
+          f"params |d| {worst:.3e}")
+    return counts
 
 
 def main() -> int:
@@ -2749,6 +3149,11 @@ def main() -> int:
     train = training(cfg, dev, card, reset_counts, read_counts)
     done("training", t0)
 
+    # --------------------------------------------------- dense training --
+    t0 = phase("dense training")
+    dense = dense_training(dev, card, reset_counts, read_counts)
+    done("dense training", t0)
+
     # -------------------------------------------------------- attention --
     t0 = phase("attention")
     attn = attention(dev, card, reset_counts, read_counts)
@@ -2771,6 +3176,7 @@ def main() -> int:
                     if kname == "rowsplit_spmm" else 0,
                     "tune": tuned["launches"].get(kname, 0),
                     "training": train.get(kname, 0),
+                    "dense_training": dense[kname],
                     "attention": attn["launches"]
                     if kname == "flash_attention" else 0,
                     "decode": dec["launches"] if kname == "moe_gemm" else 0}
@@ -2820,7 +3226,11 @@ def main() -> int:
           f"times the {INNER} calls it captured, a capture running none; "
           "and two serving runs with the TuneDB), "
           "the training runs "
-          f"({TRAIN_STEPS} steps of each method), the attention phase's "
+          f"({TRAIN_STEPS} steps of each method), the dense training "
+          "phase's in-process runs (0 for all five: a dense model has no "
+          "sparse leaf, and the trainer's MoE takes the batched matmul; "
+          "the train CLI's subprocesses are not counted), the attention "
+          "phase's "
           f"main-path run ({2 * len(FLASH_MODEL_SHAPES)} ops.flash_attention "
           f"calls) and the OLMoE generate run ({GEN_LEN + 1} forwards); "
           "max_abs_err: worst parity case, forward, gradient, the online "

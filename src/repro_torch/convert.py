@@ -9,7 +9,9 @@ both packages can run the same model.  :func:`csr_from_numpy` carries an
 already-pruned reference CSR across as ``(row_ptr, col_ind, vals,
 shape)``, and :func:`sparse_mlp_from_numpy` a whole pruned MLP (the
 reference's ``prune_mlp`` dict), so both packages fine-tune the same
-patterns from the same values.  Nothing here imports JAX.
+patterns from the same values.  :func:`train_state_from_numpy` carries a
+whole training state across, so both packages take a step from the same
+state.  Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -52,6 +54,23 @@ def params_from_numpy(tree: dict, cfg, device="cuda") -> dict:
                                    lambda x, ci=ci: _tensor(x[ci], device)))
     params["blocks"] = blocks
     return params
+
+
+def train_state_from_numpy(state: dict, cfg, device="cuda") -> dict:
+    """The reference's training state ``{"params", "opt": {"step", "m",
+    "v"[, "master"]}[, "residual"]}`` (numpy leaves) → the port's: every
+    param-shaped tree unstacked as :func:`params_from_numpy` unstacks the
+    params, ``step`` a 0-d int32 tensor."""
+    opt = state["opt"]
+    out = {"params": params_from_numpy(state["params"], cfg, device),
+           "opt": {"step": torch.tensor(int(np.asarray(opt["step"])),
+                                        dtype=torch.int32, device=device)}}
+    for k in ("m", "v", "master"):
+        if k in opt:
+            out["opt"][k] = params_from_numpy(opt[k], cfg, device)
+    if "residual" in state:
+        out["residual"] = params_from_numpy(state["residual"], cfg, device)
+    return out
 
 
 def csr_from_numpy(row_ptr, col_ind, vals, shape, device="cuda") -> CSR:

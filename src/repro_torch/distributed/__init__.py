@@ -1,3 +1,4 @@
-"""Distributed helpers of the port.  Only ``fault.retry`` so far; sharded
-plans and the rest of the reference's ``repro.distributed`` come with the
-sharding slice."""
+"""Distributed helpers of the port: the fault-tolerance hooks of the
+reference's ``repro.distributed.fault`` (preemption, stragglers, step
+timing, retry).  Sharded plans and the rest of ``repro.distributed`` come
+with the sharding slice."""

@@ -93,9 +93,15 @@ def moe_group_gemm_cuda(x: torch.Tensor, w: torch.Tensor,
     Accumulates in float32 and writes (tokens_pad, d_out) in x's dtype; a
     block whose expert is out of range is written as zeros.  Launches on
     the current stream without synchronising; raises on any operand the
-    kernel does not take.
+    kernel does not take, and on a call that would need a gradient.
     """
     global LAUNCHES
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        raise RuntimeError(
+            "moe_group_gemm_cuda has no backward: the reference's grouped "
+            "GEMM op has no VJP either; train through the batched matmul "
+            "(moe_apply(..., use_kernel=False)), or call it under "
+            "torch.no_grad() or on tensors that do not require grad")
     if not x.is_cuda:
         raise ValueError(
             f"moe_group_gemm_cuda runs on CUDA tensors; x is on {x.device} "

@@ -7,15 +7,19 @@ untied, ``final_norm``, and ``blocks`` — one dict per layer (``ln1``,
 stacks each segment's layers on a leading axis for ``lax.scan``; eager
 PyTorch walks a list instead (``repro_torch.convert`` unstacks a reference
 param tree), and the KV caches are a list of per-layer dicts likewise.
-Three entry points: ``forward``, ``prefill`` and ``decode_step``.  SSD and
-RG-LRU blocks arrive with later slices.
+Entry points: ``loss_and_aux`` (training), ``prefill`` and
+``decode_step``.  SSD and RG-LRU blocks arrive with later slices.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.tree import paths
 
 from . import layers as L
 from . import moe as MOE
+from . import losses
 
 _BTYPES = ("attn", "moe")      # the block types ported so far
 
@@ -63,15 +67,34 @@ def init_params(cfg, seed: int, device="cuda") -> dict:
     return params
 
 
+def stack_keys(params, cfg) -> list[str]:
+    """For each leaf of ``params`` (in ``tree.leaves`` order) the
+    reference's tensor that holds it: a leaf of layer i's block names its
+    segment and pattern position instead of i, since the reference stacks
+    a segment's layers on one leading axis; other leaves name
+    themselves."""
+    where = [f"{si}.{pi}" for si, (pattern, count) in enumerate(cfg.segments)
+             for _ in range(count) for pi in range(len(pattern))]
+    keys = []
+    for p in paths(params):
+        parts = p.split("/")
+        if parts[0] == "blocks":
+            parts[1] = where[int(parts[1])]
+        keys.append("/".join(parts))
+    return keys
+
+
 def init_caches(cfg, batch: int, cache_len: int, device) -> list:
     """One zeroed KV cache per layer, in layer order."""
     return [init_block_cache(bt, cfg, batch, cache_len, device)
             for bt in cfg.block_types()]
 
 
-def block_apply(p, btype, x, cfg, *, positions=None, cache=None, pos=None):
+def block_apply(p, btype, x, cfg, *, positions=None, cache=None, pos=None,
+                use_kernel: bool | None = None):
     """One pre-norm block (sequential, or ``parallel_block``): attention,
-    then the MLP or the MoE.  Returns (x, new_cache, aux)."""
+    then the MLP or the MoE (``use_kernel`` as in ``moe.moe_apply``).
+    Returns (x, new_cache, aux)."""
     _check_btype(btype)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = L.norm_apply(p["ln1"], x, cfg.norm)
@@ -82,7 +105,7 @@ def block_apply(p, btype, x, cfg, *, positions=None, cache=None, pos=None):
         x = x + attn_out
         h = L.norm_apply(p["ln2"], x, cfg.norm)
     if btype == "moe":
-        ffn_out, aux = MOE.moe_apply(p["moe"], h, cfg)
+        ffn_out, aux = MOE.moe_apply(p["moe"], h, cfg, use_kernel=use_kernel)
     else:
         ffn_out = L.mlp_apply(p["mlp"], h, cfg)
     if cfg.parallel_block:
@@ -90,15 +113,25 @@ def block_apply(p, btype, x, cfg, *, positions=None, cache=None, pos=None):
     return x + ffn_out, new_cache, aux
 
 
-def forward(params, cfg, h, *, positions=None, caches=None, pos=None):
-    """h (b, s, d) embedded inputs → (h, new_caches, aux_total)."""
+def forward(params, cfg, h, *, positions=None, caches=None, pos=None,
+            remat: bool = False, use_kernel: bool | None = None):
+    """h (b, s, d) embedded inputs → (h, new_caches, aux_total).
+
+    ``remat`` checkpoints each block: its activations are dropped after
+    the forward and rebuilt in the backward (the reference's
+    ``jax.checkpoint`` of each scan step, which is one block for
+    single-block patterns).  ``use_kernel`` goes to every MoE block."""
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     new_caches = []
     for i, (btype, lp) in enumerate(zip(cfg.block_types(),
                                         params["blocks"])):
-        h, nc, a = block_apply(lp, btype, h, cfg, positions=positions,
-                               cache=None if caches is None else caches[i],
-                               pos=pos)
+        kw = dict(positions=positions, pos=pos, use_kernel=use_kernel,
+                  cache=None if caches is None else caches[i])
+        if remat:
+            h, nc, a = checkpoint(block_apply, lp, btype, h, cfg,
+                                  use_reentrant=False, **kw)
+        else:
+            h, nc, a = block_apply(lp, btype, h, cfg, **kw)
         new_caches.append(nc)
         aux_total = aux_total + a
     return h, new_caches, aux_total
@@ -118,14 +151,29 @@ def unembed_matrix(params, cfg) -> torch.Tensor:
 
 
 def _logits(params, cfg, h) -> torch.Tensor:
-    """h (b, s, d) after the final norm → f32 logits (b, s, vocab): the
-    unembedding cast to h's dtype, then both operands' exact f32 values
-    multiplied in f32 (the reference's ``preferred_element_type=f32``)."""
-    w = unembed_matrix(params, cfg).to(h.dtype)
-    logits = torch.einsum("bsd,vd->bsv", h.float(), w.float())
-    if cfg.logit_softcap:
-        logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
-    return logits
+    """h (b, s, d) after the final norm → f32 logits (b, s, vocab), by
+    the loss's rule (:func:`repro_torch.models.losses.logits`)."""
+    return losses.logits(h, unembed_matrix(params, cfg), cfg.logit_softcap)
+
+
+def loss_and_aux(params, cfg, batch, *, remat: bool = True,
+                 loss_chunk: int = 512, aux_weight: float = 0.01):
+    """Causal-LM loss.  batch: tokens (b, s), labels (b, s) and an optional
+    mask (b, s).  Returns (loss, {"nll", "aux", "tokens"}), float32 0-d.
+
+    MoE blocks run their experts through the batched matmul, on every
+    device: the grouped GEMM kernel has no backward (the reference's
+    trainer takes the same path off the TPU)."""
+    if "tokens" not in batch:
+        raise ValueError("loss_and_aux takes token batches (embedding "
+                         "inputs are not ported yet)")
+    h = embed_inputs(params, cfg, batch["tokens"])
+    h, _, aux = forward(params, cfg, h, remat=remat, use_kernel=False)
+    h = L.norm_apply(params["final_norm"], h, cfg.norm)
+    nll, cnt = losses.chunked_cross_entropy(
+        h, unembed_matrix(params, cfg), batch["labels"], chunk=loss_chunk,
+        logit_softcap=cfg.logit_softcap, mask=batch.get("mask"))
+    return nll + aux_weight * aux, {"nll": nll, "aux": aux, "tokens": cnt}
 
 
 def prefill(params, cfg, batch: dict, *, cache_len: int | None = None):

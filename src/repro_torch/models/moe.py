@@ -44,7 +44,7 @@ def init_moe(gen: torch.Generator, cfg) -> dict:
 def route(p, x, cfg):
     """Top-k routing.  x (t, d) → gates (t, k) f32, experts (t, k) int64,
     probs (t, E) f32."""
-    logits = x.to(torch.float32) @ p["router"]
+    logits = x.to(torch.float32) @ p["router"].to(torch.float32)
     probs = torch.softmax(logits, dim=-1)
     gates, experts = torch.topk(probs, cfg.top_k, dim=-1)
     gates = gates / gates.sum(-1, keepdim=True)

@@ -1,24 +1,26 @@
-"""Step functions: the serving steps (prefill, decode), microbatched
-scoring, and sparse fine-tuning, SGD on the CSR values of a pruned MLP.
+"""Step functions: the units the launchers run.
 
-    prefill = make_prefill_step(cfg, cache_len=s + gen + 8)
-    decode = make_decode_step(cfg)
-    out = prefill(params, {"tokens": prompt})      # caches, logits, pos
-    logits, caches = decode(params, out["caches"], {"tokens": tok},
-                            out["pos"])
+``make_train_step``: forward, backward and AdamW over a whole model, with
+gradient accumulation over microbatches, per-block remat, the chunked
+loss, and optional int8 error-feedback gradient compression.
+``init_train_state`` makes the state it takes.
 
-    sparse_p = prune_mlp(mlp_params, 0.25)          # plans with transpose
-    step, vals = make_sparse_train_step(sparse_p, lr=1e-2)
-    for x, y in batches:
-        vals, loss = step(vals, x, y)
+    step = make_train_step(cfg, adamw.AdamWConfig(), microbatches=2)
+    state = init_train_state(cfg, seed=0)           # on the card
+    for i in range(steps):
+        b = {k: v.cuda() for k, v in source.batch_at(i).items()}
+        b = {k: v.reshape(2, -1, *v.shape[1:]) for k, v in b.items()}
+        state, metrics = step(state, b)
 
-The pruned pattern — and so every plan — is frozen; the values are the
-degrees of freedom.  A step runs the whole differentiable SpMM: the
-forward through the cached plans, ``dB`` through the merge kernel on the
-transpose plans, ``dvals`` through the SDDMM kernel.  Plans are attached
-once, before the first step (:func:`ensure_spmm_plans`), so a step never
-plans.  The reference's ``microbatched`` is a serving helper and comes
-with the serving slice.
+``make_prefill_step`` / ``make_decode_step``: the serving pair;
+``microbatched``: a scoring call in fixed-size slices.
+
+``ensure_spmm_plans`` / ``make_sparse_train_step``: the SpMM-engine hooks.
+Plans are attached once, before the first step, so a step never plans;
+the sparse step is SGD on the CSR values of a pruned MLP (the pruned
+pattern, and so every plan, is frozen).  It runs the whole differentiable
+SpMM: the forward through the cached plans, ``dB`` through the merge
+kernel on the transpose plans, ``dvals`` through the SDDMM kernel.
 """
 from __future__ import annotations
 
@@ -27,6 +29,116 @@ import torch
 from repro_torch.core import ExecutionConfig, SparseMatrix
 from repro_torch.models import model as M
 from repro_torch.models import sparse as S
+from repro_torch.optim import adamw
+from repro_torch.optim import compression as gc
+from repro_torch.tree import leaves, tree_map, unflatten
+
+PARAM_MODES = ("fsdp", "zero1")
+GRAD_COMPRESSIONS = ("none", "int8_ef")
+
+
+def _check_modes(grad_compression: str, param_mode: str) -> None:
+    if param_mode not in PARAM_MODES:
+        raise ValueError(f"param_mode {param_mode!r}: expected one of "
+                         f"{PARAM_MODES}")
+    if grad_compression not in GRAD_COMPRESSIONS:
+        raise ValueError(f"grad_compression {grad_compression!r}: expected "
+                         f"one of {GRAD_COMPRESSIONS}")
+
+
+def loss_and_grads(params, cfg, batch, *, remat: bool = True,
+                   loss_chunk: int = 512):
+    """``(loss, aux, grads)`` of ``M.loss_and_aux`` on one batch: the
+    gradient of every param, in a tree like ``params`` and in each param's
+    dtype; ``loss`` and ``aux`` detached."""
+    flat = [p.detach().requires_grad_(True) for p in leaves(params)]
+    loss, aux = M.loss_and_aux(unflatten(params, flat), cfg, batch,
+                               remat=remat, loss_chunk=loss_chunk)
+    grads = torch.autograd.grad(loss, flat)
+    return (loss.detach(), {k: v.detach() for k, v in aux.items()},
+            unflatten(params, grads))
+
+
+def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, *,
+                    microbatches: int = 1, remat: bool = True,
+                    loss_chunk: int = 512, grad_compression: str = "none",
+                    param_mode: str = "fsdp"):
+    """Returns ``train_step(state, batch) -> (state, metrics)``.
+
+    ``state = {"params", "opt"[, "residual"]}`` (``init_train_state``);
+    the step returns a new state and leaves the one it was given as it
+    was.  ``batch`` holds tokens and labels (b, s) on the params' device;
+    with ``microbatches > 1`` they arrive shaped (microbatches, local, s),
+    the float32 gradients of the microbatches are summed and averaged, the
+    loss averaged, and ``nll``/``aux`` are the last microbatch's.
+    ``param_mode``: ``"fsdp"`` (float32 params; AdamW on them) or
+    ``"zero1"`` (compute-dtype params, the float32 master in the optimizer
+    state).  The reference shards params, master and moments over its
+    mesh in either mode; on one card the two differ only in precision.
+    ``grad_compression="int8_ef"`` passes the gradients through
+    ``compression.roundtrip`` with the residual in the state, a scale for
+    each of the reference's stacked tensors (``M.stack_keys``).
+    ``metrics``: ``loss``, ``nll``, ``aux``, ``grad_norm``, ``lr`` and
+    ``skipped``, 0-d float32 tensors on the device (nothing is read back).
+    """
+    _check_modes(grad_compression, param_mode)
+    if microbatches < 1:
+        raise ValueError(f"microbatches must be >= 1, got {microbatches}")
+
+    def grads_of(params, batch):
+        if microbatches == 1:
+            return loss_and_grads(params, cfg, batch, remat=remat,
+                                  loss_chunk=loss_chunk)
+        n = {v.shape[0] for v in batch.values()}
+        if n != {microbatches}:
+            raise ValueError(f"batch leaves lead with {sorted(n)}, expected "
+                             f"(microbatches={microbatches}, local, ...)")
+        loss_sum = torch.zeros((), dtype=torch.float32,
+                               device=leaves(params)[0].device)
+        acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                             device=p.device), params)
+        for i in range(microbatches):
+            mb = {k: v[i] for k, v in batch.items()}
+            loss, aux, grads = loss_and_grads(params, cfg, mb, remat=remat,
+                                              loss_chunk=loss_chunk)
+            acc = tree_map(torch.add, acc, grads)
+            loss_sum = loss_sum + loss
+        inv = 1.0 / microbatches
+        return loss_sum * inv, aux, tree_map(lambda g: g * inv, acc)
+
+    def train_step(state, batch):
+        params, opt = state["params"], state["opt"]
+        loss, aux, grads = grads_of(params, batch)
+        if grad_compression == "int8_ef":
+            grads, residual = gc.roundtrip(grads, state["residual"],
+                                           M.stack_keys(params, cfg))
+        update = (adamw.apply_updates_zero1 if param_mode == "zero1"
+                  else adamw.apply_updates)
+        new_params, new_opt, metrics = update(params, grads, opt, opt_cfg)
+        new_state = {"params": new_params, "opt": new_opt}
+        if grad_compression == "int8_ef":
+            new_state["residual"] = residual
+        metrics = dict(metrics, loss=loss, nll=aux["nll"], aux=aux["aux"])
+        return new_state, metrics
+
+    return train_step
+
+
+def init_train_state(cfg, seed: int, *, grad_compression: str = "none",
+                     param_mode: str = "fsdp", device="cuda") -> dict:
+    """``{"params", "opt"[, "residual"]}``: random params from ``seed``
+    (``M.init_params``, drawn on ``device``), zero moments at step 0, and
+    with ``int8_ef`` a zero residual."""
+    _check_modes(grad_compression, param_mode)
+    params = M.init_params(cfg, seed, device)
+    if param_mode == "zero1":
+        params, opt = adamw.init_state_zero1(params, cfg.cdtype)
+    else:
+        opt = adamw.init_state(params)
+    state = {"params": params, "opt": opt}
+    if grad_compression == "int8_ef":
+        state["residual"] = gc.init_residual(params)
+    return state
 
 
 def make_prefill_step(cfg, *, cache_len: int | None = None):
@@ -47,16 +159,6 @@ def make_decode_step(cfg):
         return M.decode_step(params, cfg, caches, batch, pos)
 
     return decode_step
-
-
-def _tree_map(fn, *trees):
-    """``fn`` over matching tensor leaves of dicts, lists and tuples."""
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in first}
-    if isinstance(first, (list, tuple)):
-        return type(first)(_tree_map(fn, *xs) for xs in zip(*trees))
-    return fn(*trees)
 
 
 def microbatched(fn, microbatch: int, *, argnums=(0,), pad=True):
@@ -103,9 +205,9 @@ def microbatched(fn, microbatch: int, *, argnums=(0,), pad=True):
             sliced = [cut(a) if i in argnums else a
                       for i, a in enumerate(args)]
             outs.append(fn(*sliced))
-        out = _tree_map(lambda *xs: torch.cat(xs, dim=0), *outs)
+        out = tree_map(lambda *xs: torch.cat(xs, dim=0), *outs)
         if rem:
-            out = _tree_map(lambda x: x[:total], out)
+            out = tree_map(lambda x: x[:total], out)
         return out
 
     return run

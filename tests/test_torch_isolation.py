@@ -1,5 +1,6 @@
 """The port stands alone: nothing under src/repro_torch/, nor
-chip_smoke.py, imports JAX or the JAX package ``repro``."""
+chip_smoke.py, imports JAX or the JAX package ``repro``, nor ``msgpack``
+or ``zstandard``: the port runs on hosts without them."""
 import ast
 import os
 import subprocess
@@ -37,9 +38,14 @@ def _imported_modules(path):
             yield str(node.args[0].value)
 
 
+# The JAX package, and what the port runs without (the reference's
+# checkpoint index is msgpack + zstandard; the port's is JSON + zlib).
+FORBIDDEN = ("jax", "jaxlib", "repro", "msgpack", "zstandard")
+
+
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in FORBIDDEN
 
 
 def test_port_files_exist():
@@ -59,9 +65,11 @@ def test_importing_the_port_leaves_jax_out():
             " repro_torch.runtime.steps, repro_torch.models.moe,"
             " repro_torch.kernels.moe_gemm,"
             " repro_torch.kernels.flash_attention, repro_torch.tune,"
-            " repro_torch.tune.cli, repro_torch.matrices;"
-            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'repro'));"
+            " repro_torch.tune.cli, repro_torch.matrices,"
+            " repro_torch.launch.train, repro_torch.optim,"
+            " repro_torch.checkpoint, repro_torch.data;"
+            f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r});"
             "print(bad); raise SystemExit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [os.path.join(ROOT, "src")]
