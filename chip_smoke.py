@@ -142,7 +142,35 @@ NVIDIA H100 (sm_90a) and the CUDA toolkit.  Phases, each timed:
               15 held against the plain version on their own inputs; the
               smoke OLMoE on the card against the CPU (the same tokens);
               and Llama-3.2-1B's ``generate`` (the GQA decode path) timed;
-9. summary  — a ``kernels`` JSON line, the card's name and power limit, and
+9. archs    — the other eight architectures at published widths (random
+              weights from a seed, f32 params, bf16 compute):
+              RecurrentGemma-2B at full depth, ``serve_pruned`` batch 4 x
+              prompt 32 at keep 0.25 by the §5.4 rule (row-split) and with
+              merge forced, through the serving phase's loop (78 launches a
+              forward each, all f32x4, 0 plans built while serving, warm
+              forward, the SpMMs' device ms a layer, device busy, peak
+              memory); the served plans of layers 0 and 25 held against
+              their plain versions at the parity bar, the smoke model's
+              pruned forward card vs CPU, the two methods at f32 compute
+              (their bf16 gap printed); then a dense ``generate`` 1 x 3072
+              x 16 past its 2048 local window; Mamba2-1.3B at full depth,
+              ``generate`` 4 x 512 x 16 (four SSD chunks), a profiled
+              decode step (busy, idle share); Mixtral-8x22B cut to 2 of 56
+              layers, ``generate`` 4 x 32 x 4 through the grouped GEMM (6
+              launches a forward, all wgmma), both MoE blocks held against
+              the plain version (bf16 and f32), and the capacity drops and
+              routing flips that part its 4-row prefill from the full
+              forward; Granite-3-2B and MusicGen-large at full depth,
+              Command-R-35B, Qwen2-72B and InternVL2-76B cut to 2 layers
+              (MusicGen and InternVL2 on seeded embeddings), with times and
+              peak memory.  Every model's prefill and decode steps are held
+              to teacher forcing: f32 at 3e-2, bf16 below 0.1 relative
+              Frobenius (the MoE cut at f32 only, on one row), a bar that
+              cuts of Mamba2 and Granite at 2 to 48 layers show stands
+              between the sound gap and injected faults.  Last, the eight
+              smoke configs at f32 on the card against the CPU (logits and
+              caches);
+10. summary — a ``kernels`` JSON line, the card's name and power limit, and
               last the ``{"ok": true, ...}`` line.
 
 Exits non-zero, printing no result, when torch sees no CUDA device, when
@@ -152,6 +180,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import math
@@ -456,19 +485,23 @@ def gather_tb_s(nnz, n, itemsize, ms) -> str:
     return f"{nnz * n * itemsize / (ms * 1e-3) / 1e12:.2f} TB/s"
 
 
+def logits_gap(got, want) -> tuple:
+    """(max |d|, relative Frobenius |d| / |want|) of two logits tensors."""
+    d = (got.float() - want.float()).abs()
+    return d.max().item(), (torch.linalg.vector_norm(d) /
+                            torch.linalg.vector_norm(want.float())).item()
+
+
 def serve_gap(what, got, want) -> float:
     """Print the gap between two serving runs' logits and raise unless it
     is within SERVE_TOL; returns max |d|."""
-    d = (got.float() - want.float()).abs()
-    rel = (torch.linalg.vector_norm(d) / torch.linalg.vector_norm(
-        want.float())).item()
-    print(f"{what}: max |d| {d.max().item():.4e}, relative Frobenius "
-          f"{rel:.4e}, max |logit| {want.abs().max().item():.3f} (tol "
-          f"max_abs {SERVE_TOL['max_abs']}, rel_fro {SERVE_TOL['rel_fro']})")
-    if not (d.max().item() <= SERVE_TOL["max_abs"]
-            and rel <= SERVE_TOL["rel_fro"]):
+    d, rel = logits_gap(got, want)
+    print(f"{what}: max |d| {d:.4e}, relative Frobenius {rel:.4e}, max "
+          f"|logit| {want.abs().max().item():.3f} (tol max_abs "
+          f"{SERVE_TOL['max_abs']}, rel_fro {SERVE_TOL['rel_fro']})")
+    if not (d <= SERVE_TOL["max_abs"] and rel <= SERVE_TOL["rel_fro"]):
         raise AssertionError(f"{what}: outside the serving bars")
-    return d.max().item()
+    return d
 
 
 def check_close(what, got, want, tol):
@@ -1343,6 +1376,151 @@ def tune(cfg, params, prompt, forced, dev, card, reset_counts,
                                us=rec.timings))
 
 
+def serve_methods(cfg, params, prompt, runs, dev, card, reset_counts,
+                  read_counts) -> dict:
+    """``serve.serve_pruned`` (keep KEEP) once for each (kernel,
+    --spmm-method, the plans' method) of ``runs``.  Each run must plan that
+    method, build no plan while serving, launch that kernel alone — one
+    launch a matrix, one a length bucket for rowgroup, over the cold and
+    warm forwards — all ``f32x4`` (B (d_in, 128) f32), and give finite
+    logits; then one warm forward is profiled.  Returns, by the plans'
+    method: the run's counts, its logits, the pruned blocks and the
+    launches a forward."""
+    from repro_torch.core import PlanPolicy
+    from repro_torch.kernels import merge_spmm, rowsplit_spmm
+    from repro_torch.launch import serve
+    mods = {"rowsplit_spmm": rowsplit_spmm, "merge_spmm": merge_spmm}
+    forwards = 2                      # serve_pruned's cold + warm calls
+    out = {}
+    for kname, method, planned in runs:
+        policy = PlanPolicy(method=method)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        rep = serve.serve_pruned(cfg, params, prompt, KEEP, policy=policy)
+        counts = read_counts()
+        bodies = dict(mods[kname].LAUNCHES_BY_BODY)
+        blocks = serve.prune_ffn_blocks(params, cfg, KEEP, policy)
+        per_forward = sum(max(1, len(sl.plan.meta.extra)) if planned ==
+                          "rowgroup" else 1 for blk in blocks
+                          for sl in blk["mlp"].values())
+        if planned == "rowgroup":
+            groups = sorted({(name, sl.plan.meta.extra)
+                             for blk in blocks
+                             for name, sl in blk["mlp"].items()})
+            print(f"serve method=rowgroup: length buckets (m_g, l_g) of the "
+                  f"{len(blocks)} layers' matrices: {groups}")
+        want = per_forward * forwards
+        print(f"serve {cfg.name} method={method}: methods {rep.methods}; "
+              f"plan {rep.plan_s:.3f} s, cold forward "
+              f"{rep.cold_s * 1e3:.2f} ms, warm forward "
+              f"{rep.warm_s * 1e3:.2f} ms, {rep.tok_per_s:.0f} tok/s; plans "
+              f"built during serving {rep.replans}; launches {counts} over "
+              f"{forwards} forwards ({counts[kname] // forwards} of {kname} "
+              f"a forward), bodies {bodies}; device memory "
+              f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB held, "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB peak "
+              f"in the run (params, the plans cached so far); {card}")
+        if set(rep.methods.values()) != {planned} or rep.replans or \
+                counts[kname] != want or sum(counts.values()) != want:
+            raise AssertionError(f"{cfg.name} method={method}: expected "
+                                 f"{want} launches of {kname} alone, got "
+                                 f"{counts} (plans {rep.methods})")
+        if bodies != {"f32x4": want}:
+            raise AssertionError(f"{cfg.name}: {kname} ran {bodies}, "
+                                 "expected f32x4 (B (d_in, 128) f32)")
+        lg = rep.logits
+        if lg.shape != (*prompt.shape, cfg.vocab_size) or \
+                not torch.isfinite(lg).all():
+            raise AssertionError(f"{cfg.name}: bad logits {lg.shape}")
+        fwd = serve.make_pruned_forward(cfg)
+
+        def forward():
+            with torch.no_grad():
+                fwd(params, blocks, prompt)
+
+        # The SpMM kernels by name: rowsplit_kernel; merge_range_kernel
+        # and merge_fixup_kernel.
+        part = "merge_" if kname == "merge_spmm" else "rowsplit_kernel"
+        busy, spmm_ms = profile_device(forward, part=part)
+        print(f"profile {cfg.name} method={method}: device busy {busy:.3f} "
+              f"ms of the {rep.warm_s * 1e3:.2f} ms warm forward (idle share "
+              f"{1 - busy / (rep.warm_s * 1e3):.3f}); the {per_forward} SpMM "
+              f"launches {spmm_ms:.3f} ms, {spmm_ms / cfg.num_layers:.4f} ms "
+              f"a layer ({blocks[0]['mlp']['w1'].weight.nnz()} nonzeros in "
+              f"layer 0's w1); {card}")
+        out[planned] = dict(counts=counts, logits=lg, blocks=blocks,
+                            per_forward=per_forward)
+    return out
+
+
+def hold_served_plans(label, blocks, layers, kname, dev, read_counts):
+    """The served plans of ``layers``' w1, w3 and w2, each on a seeded B
+    (d_in, SERVE_BATCH x SERVE_PROMPT) f32, as the pruned forward gives
+    it: the kernel (``impl="cuda"``, one counted launch of ``kname``)
+    against its plain version (``impl="torch"``) at the parity phase's f32
+    TOL.  Returns the worst max |d|."""
+    from repro_torch.core import ExecutionConfig
+    n = SERVE_BATCH * SERVE_PROMPT
+    tol = TOL["float32"]
+    worst = 0.0
+    for li in layers:
+        for name, sl in blocks[li]["mlp"].items():
+            (m, k), a = sl.weight.shape, sl.matrix
+            g = torch.Generator(device=dev).manual_seed(40 + li)
+            b = torch.randn(k, n, generator=g, device=dev)
+            before = read_counts()[kname]
+            got = a.matmul(b, ExecutionConfig(impl="cuda"))
+            ran = read_counts()[kname] - before
+            want = a.matmul(b, ExecutionConfig(impl="torch"))
+            torch.cuda.synchronize()
+            if ran != 1:
+                raise AssertionError(f"{label} layer {li} {name}: {ran} "
+                                     f"launches of {kname}, expected 1")
+            what = f"{label} layer {li} {name} {(m, k)}"
+            d, r = check_close(f"{what} kernel vs plain", got, want, tol)
+            print(f"{what} nnz {sl.weight.nnz()} n {n} f32: {kname} vs its "
+                  f"plain version max |d| {d:.3e}, max |C| "
+                  f"{want.abs().max().item():.3f} (tol rtol {tol['rtol']} "
+                  f"atol {tol['atol']}; worst ratio {r:.3f})")
+            worst = max(worst, d)
+    return worst
+
+
+def smoke_pruned_parity(arch, methods, dev, read_counts) -> None:
+    """The smoke ``arch`` at f32 compute, its FFNs pruned and planned with
+    each of ``methods``: the pruned forward on the card (kernels, which
+    must launch) against the CPU (plain versions) from the same params
+    and tokens, at SMOKE_TOL."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import PlanPolicy
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    scfg = dataclasses.replace(get_smoke_config(arch),
+                               compute_dtype="float32")
+    sp_cpu = M.init_params(scfg, SEED, "cpu")
+    sp_gpu = to_device(sp_cpu, dev)
+    tokens = torch.randint(0, scfg.vocab_size, (2, 16),
+                           generator=torch.Generator().manual_seed(3))
+    fwd = serve.make_pruned_forward(scfg)
+    for method in methods:
+        pol = PlanPolicy(method=method)
+        with torch.no_grad():
+            want = fwd(sp_cpu, serve.prune_ffn_blocks(sp_cpu, scfg, KEEP,
+                                                      pol), tokens)
+            gpu_blocks = serve.prune_ffn_blocks(sp_gpu, scfg, KEEP, pol)
+            before = sum(read_counts().values())
+            got = fwd(sp_gpu, gpu_blocks, tokens.to(dev))
+            ran = sum(read_counts().values()) - before
+        err = (got.cpu() - want).abs().max().item()
+        print(f"smoke {arch} f32 pruned forward, {method}: card ({ran} "
+              f"kernel launches) vs CPU max |d| {err:.3e} (tol rtol "
+              f"{SMOKE_TOL['rtol']} atol {SMOKE_TOL['atol']})")
+        if not ran:
+            raise AssertionError(f"smoke {arch} {method}: no kernel ran")
+        torch.testing.assert_close(got.cpu(), want, **SMOKE_TOL)
+
+
 def online(cfg, params, prompt, unbatched, dev, card, reset_counts,
            read_counts) -> dict:
     """The serve CLI's ``--serve`` path, ``serve.serve_online``, on the
@@ -1811,10 +1989,12 @@ def timing_moe(dev, card) -> dict:
     return layer
 
 
-def hold_moe_layers(cfg, params, prompt, dev, read_counts):
-    """Layers 0 and 15 of the full-width model: ``moe_apply`` on the same
-    input h (the layer's own, from the prompt) once through the kernel and
-    once through its plain version (``impl="torch"``).  The router is the
+def hold_moe_layers(cfg, params, prompt, dev, read_counts,
+                    layers=MOE_HOLD_LAYERS):
+    """The MoE blocks of ``layers`` (OLMoE-1B-7B's 0 and 15 by default):
+    ``moe_apply`` on the same input h (the layer's own, from the prompt)
+    once through the kernel and once through its plain version
+    (``impl="torch"``).  The router is the
     same torch code on the same h, so the routing is identical and only
     the grouped GEMMs differ.  bf16 compute at 2e-2, and f32 compute at
     the reference's MoE tolerance 2e-4."""
@@ -1824,13 +2004,13 @@ def hold_moe_layers(cfg, params, prompt, dev, read_counts):
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     worst = 0.0
     with torch.no_grad():
-        x = M.embed_inputs(params, cfg, prompt)
+        x = M.embed_inputs(params, cfg, {"tokens": prompt})
         for i, lp in enumerate(params["blocks"]):
             a, _ = L.attention_apply(lp["attn"], L.norm_apply(
                 lp["ln1"], x, cfg.norm), cfg)
             x = x + a
             h = L.norm_apply(lp["ln2"], x, cfg.norm)
-            if i in MOE_HOLD_LAYERS:
+            if i in layers:
                 for c, hh, tol in ((cfg, h, MOE_TOL["bfloat16"]),
                                    (cfg32, h.float(), MOE_TOL["float32"])):
                     before = read_counts()["moe_gemm"]
@@ -1863,27 +2043,27 @@ def hold_moe_layers(cfg, params, prompt, dev, read_counts):
 
 
 def run_generate(cfg, params, prompt, dev, card, reset_counts, read_counts,
-                 label):
-    """``generate`` at batch x prompt x GEN_LEN, each forward timed;
+                 label, gen=GEN_LEN):
+    """``generate`` at batch x prompt x ``gen``, each forward timed;
     prints and returns (tokens, counts, times, peak GiB)."""
     from repro_torch.launch import serve
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     times = []
     reset_counts()
-    out = serve.generate(cfg, params, prompt, GEN_LEN, times=times)
+    out = serve.generate(cfg, params, prompt, gen, times=times)
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     total = sum(times)
     b, s = prompt.shape
-    if out.shape != (b, s + GEN_LEN) or not torch.equal(out[:, :s], prompt) \
+    if out.shape != (b, s + gen) or not torch.equal(out[:, :s], prompt) \
             or int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
         raise AssertionError(f"{label}: bad tokens {tuple(out.shape)}")
-    print(f"generate {label}: batch {b} x prompt {s} x gen {GEN_LEN}: "
+    print(f"generate {label}: batch {b} x prompt {s} x gen {gen}: "
           f"prefill {times[0]:.3f} ms, decode step median "
           f"{statistics.median(times[1:]):.3f} ms (min {min(times[1:]):.3f}, "
           f"max {max(times[1:]):.3f}), {len(times)} forwards in "
-          f"{total:.3f} ms, {b * GEN_LEN / (total / 1e3):.1f} tok/s "
+          f"{total:.3f} ms, {b * gen / (total / 1e3):.1f} tok/s "
           f"(generated tokens over the synchronised forwards); peak device "
           f"memory {peak:.3f} GiB; launches {counts}; {card}")
     print(f"generate {label}: tokens[0] {out[0, s:].tolist()}")
@@ -2009,6 +2189,523 @@ def decode(dev, card, reset_counts, read_counts) -> dict:
     torch.cuda.empty_cache()
     return dict(launches=counts["moe_gemm"], worst=worst, peak=peak,
                 times=times)
+
+
+# The archs phase: the eight architectures beyond Llama and OLMoE.
+# Teacher forcing — prefill + decode steps against the full forward of the
+# same inputs.  At f32 compute the two paths differ in summation order
+# only, so f32 holds the algorithm (a wrong window, cache or state), at the
+# reference's bar (tests/test_models.py, test_prefill_decode_consistency).
+# At bf16 compute, the served path, they round at other places (the SSD's
+# bf16 decay in a prefill against f32 in a step, a longer sequence's
+# matmul shapes), and a flipped bf16 rounding of the residual stream
+# travels through every later layer of a random-weight model.
+# ``bf16_depth_gaps`` reads that gap on cuts of the same weights at
+# BF16_DEPTHS, beside a decode with a fault put in, and the bf16 bar
+# stands between the two readings (PERF.md §6).  The bf16 cast
+# order itself is held against the JAX package on the CPU
+# (tests/test_torch_archs.py).
+TEACHER_TOL = dict(rtol=3e-2, atol=3e-2)
+TEACHER_BF16_REL_FRO = 0.1
+# arch -> (depths, faults the bar must catch, faults only read).  "stale"
+# decodes every step from the prefill's state (the step's new state
+# dropped); "pos+1" decodes each token one position late (RoPE and the KV
+# slot); "state_bf16" keeps the recurrent state (SSD "ssm", RG-LRU "h")
+# in bf16 between forwards, which moves the logits less than bf16's own
+# noise (PERF.md §6), so no teacher-forcing bar can see it.
+BF16_DEPTHS = {"mamba2-1.3b": ((2, 8, 24, 48), ("stale",), ("state_bf16",)),
+               "granite-3-2b": ((2, 8, 24, 40), ("pos+1",), ())}
+# Two SpMM methods' logits at f32 compute: f32 sums in other orders
+# through 26 layers, where bf16 compute's gap is ~2e-2.
+METHODS_F32_REL_FRO = 1e-3
+# RecurrentGemma-2B's dense generate: a prompt past its local window
+# (2048), a multiple of the reference's 1024-query prefill chunk.
+RG_LONG = dict(batch=1, prompt=3072, gen=GEN_LEN)
+# Mamba2-1.3B: four of its 128-token SSD chunks, so the inter-chunk
+# recurrence runs.
+MAMBA_GEN = dict(batch=4, prompt=512, gen=GEN_LEN)
+# Mixtral-8x22B's cut: its 56 layers hold 141 B params, 564 GB at f32;
+# one card holds 80 GB.  Two layers keep every width.
+MIXTRAL_LAYERS, MIXTRAL_GEN = 2, 4
+# (arch, layers kept or None for full depth): the dense and embeddings
+# models, prefill 4 x 32 and 4 decode steps each.  The three cut models
+# hold 35-76 B params (140-300 GB at f32) at full depth.
+ARCH_RUNS = (("granite-3-2b", None), ("musicgen-large", None),
+             ("command-r-35b", 2), ("qwen2-72b", 2), ("internvl2-76b", 2))
+ARCH_STEPS = 4
+# The new smoke configs at f32 compute, the card vs the CPU.
+NEW_ARCHS = ("command-r-35b", "granite-3-2b", "internvl2-76b",
+             "mamba2-1.3b", "mixtral-8x22b", "musicgen-large", "qwen2-72b",
+             "recurrentgemma-2b")
+
+
+def cut_config(cfg, layers):
+    """``cfg`` with its first ``layers`` layers (one segment of its one
+    block type), every width kept."""
+    (btype,) = set(cfg.block_types())
+    return dataclasses.replace(cfg, num_layers=layers,
+                               segments=(((btype,), layers),))
+
+
+def seeded_inputs(cfg, b, s, dev, seed):
+    """Tokens (b, s), or unit-normal embeds (b, s, d) for an embeddings
+    model (its frontend is a stub), from ``seed`` on the card."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if cfg.input_mode == "tokens":
+        return {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                        generator=g, device=dev)}
+    return {"embeds": torch.randn(b, s, cfg.d_model, generator=g,
+                                  device=dev)}
+
+
+def teacher_logits(params, cfg, batch, at):
+    """f32 logits (b, len(at), vocab) of the full forward over ``batch``
+    at positions ``at``."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import losses
+    from repro_torch.models import model as M
+    with torch.no_grad():
+        h = M.embed_inputs(params, cfg, batch)
+        h, _, _ = M.forward(params, cfg, h)
+        h = L.norm_apply(params["final_norm"], h[:, at], cfg.norm)
+        return losses.logits(h, M.unembed_matrix(params, cfg),
+                             cfg.logit_softcap)
+
+
+def stepped_logits(params, cfg, batch, s, steps_n, times=None, fault=None):
+    """f32 logits (b, 1 + steps_n, vocab): the prefill of ``batch``'s
+    first ``s`` positions, then ``steps_n`` decode steps fed its next
+    positions.  With ``times``, a warm prefill first, then each forward's
+    host ms (synchronised) appended.  ``fault`` (a BF16_DEPTHS fault)
+    puts a known error into the decode."""
+    from repro_torch.runtime import steps
+    prefill = steps.make_prefill_step(cfg, cache_len=s + steps_n + 8)
+    decode = steps.make_decode_step(cfg)
+    cut = {k: v[:, :s] for k, v in batch.items()}
+
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        if times is not None:
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def hurt(caches):
+        if fault != "state_bf16":
+            return caches
+        return [{k: v.bfloat16().to(v.dtype) if k in ("ssm", "h") else v
+                 for k, v in c.items()} for c in caches]
+
+    with torch.no_grad():
+        if times is not None:
+            prefill(params, cut)
+            torch.cuda.synchronize()
+        st = timed(prefill, params, cut)
+        got = [st["logits"][:, 0]]
+        caches, pos = hurt(st["caches"]), st["pos"]
+        for i in range(s, s + steps_n):
+            lg, new = timed(decode, params, caches,
+                            {k: v[:, i:i + 1] for k, v in batch.items()},
+                            pos + 1 if fault == "pos+1" else pos)
+            caches = caches if fault == "stale" else hurt(new)
+            got.append(lg[:, 0])
+            pos = pos + 1
+    return torch.stack(got, dim=1)
+
+
+def teacher_forcing(label, params, cfg, batch, s, steps_n):
+    """Prefill + ``steps_n`` decode steps against the teacher-forced full
+    forward at the positions they predict from: at ``cfg``'s compute
+    (bf16), timed, with the relative Frobenius gap below
+    TEACHER_BF16_REL_FRO (for an MoE model printed only: the reference
+    holds its MoE archs at f32 alone); and at f32 compute within
+    TEACHER_TOL.  Returns (prefill ms, decode-step ms median) of the bf16
+    run, host clock, synchronised."""
+    bf16_held = not cfg.num_experts
+    at = list(range(s - 1, s + steps_n))
+    times = []
+    got = stepped_logits(params, cfg, batch, s, steps_n, times)
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{label}: non-finite logits")
+    want = teacher_logits(params, cfg, batch, at)
+    d, rel = logits_gap(got, want)
+    print(f"{label} {cfg.compute_dtype}: warm prefill {times[0]:.3f} ms, "
+          f"decode step median {statistics.median(times[1:]):.3f} ms (host "
+          f"clock, synchronised); prefill + {steps_n} decode steps vs the "
+          f"teacher-forced full forward: max |d| {d:.4e}, relative "
+          f"Frobenius {rel:.4e}, max |logit| {want.abs().max().item():.3f} "
+          + (f"(bar: relative Frobenius {TEACHER_BF16_REL_FRO})"
+             if bf16_held else "(printed, not held)"))
+    if bf16_held and not rel <= TEACHER_BF16_REL_FRO:
+        raise AssertionError(f"{label}: bf16 teacher forcing {rel:.3e}")
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    got = stepped_logits(params, cfg32, batch, s, steps_n)
+    want = teacher_logits(params, cfg32, batch, at)
+    d, r = check_close(f"{label} f32 prefill + decode vs teacher forcing",
+                       got, want, TEACHER_TOL)
+    print(f"{label} float32: prefill + {steps_n} decode steps vs the "
+          f"teacher-forced full forward: max |d| {d:.3e}, max |logit| "
+          f"{want.abs().max().item():.3f} (tol rtol {TEACHER_TOL['rtol']} "
+          f"atol {TEACHER_TOL['atol']}; worst ratio {r:.3f})")
+    return times[0], statistics.median(times[1:])
+
+
+def bf16_depth_gaps(arch, params, cfg, batch, s, steps_n) -> dict:
+    """The witness for the bf16 bar: the bf16 teacher-forcing gap
+    (relative Frobenius) of the model's first L layers, the same weights,
+    at each of BF16_DEPTHS[arch], sound and with each of its faults put
+    into the decode.  Raises unless every sound gap is within the bar and
+    every fault the bar must catch is outside it.  Returns {L: {None or
+    fault: gap}}."""
+    depths, caught, read = BF16_DEPTHS[arch]
+    faults = caught + read
+    at = list(range(s - 1, s + steps_n))
+    gaps = {}
+    for depth in depths:
+        c = cut_config(cfg, depth)
+        p = dict(params, blocks=params["blocks"][:depth])
+        want = teacher_logits(p, c, batch, at)
+        gaps[depth] = {f: logits_gap(stepped_logits(
+            p, c, batch, s, steps_n, fault=f), want)[1]
+            for f in (None, *faults)}
+        print(f"{arch} first {depth} of {cfg.num_layers} layers, bf16: "
+              f"prefill + {steps_n} decode steps vs teacher forcing, "
+              f"relative Frobenius {gaps[depth][None]:.4e} sound; with a "
+              "fault " + ", ".join(f"{f} {gaps[depth][f]:.4e}"
+                                   for f in faults)
+              + f" (bar {TEACHER_BF16_REL_FRO}; caught: {caught})")
+        if not (gaps[depth][None] <= TEACHER_BF16_REL_FRO < min(
+                gaps[depth][f] for f in caught)):
+            raise AssertionError(f"{arch} at {depth} layers: the bf16 bar "
+                                 "does not part the sound run from faults")
+    return gaps
+
+
+def archs_recurrentgemma(dev, card, reset_counts, read_counts) -> dict:
+    """RecurrentGemma-2B at full width: pruned-FFN serving by the §5.4
+    rule (row-split) and with merge forced, the served plans of the first
+    and last layers held against their plain versions, and the smoke
+    model's pruned forward on the card against the CPU; then a dense
+    ``generate`` past the local window.  Returns the serving runs'
+    launches and each SpMM kernel's worst |d| against its plain version."""
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.engine import clear_cache
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    cfg = get_config("recurrentgemma-2b")
+    print(f"model {cfg.name}: {cfg.num_layers} layers (no depth cut: "
+          f"{cfg.segments}), d_model {cfg.d_model}, lru_width "
+          f"{cfg.lru_width}, d_ff {cfg.d_ff}, heads {cfg.num_heads}/"
+          f"{cfg.num_kv_heads} (head_dim {cfg.head_dim}), {cfg.attention} "
+          f"window {cfg.window}, vocab {cfg.vocab_size} tied; "
+          f"{cfg.param_dtype} params, {cfg.compute_dtype} compute; random "
+          f"weights from seed {SEED}")
+    params = M.init_params(cfg, SEED, dev)
+    prompt = seeded_inputs(cfg, SERVE_BATCH, SERVE_PROMPT, dev,
+                           SEED + 1)["tokens"]
+    runs = (("rowsplit_spmm", "auto", "rowsplit"),
+            ("merge_spmm", "merge", "merge"))
+    served = serve_methods(cfg, params, prompt, runs, dev, card,
+                           reset_counts, read_counts)
+    launches, worst = {}, {}
+    for kname, _, planned in runs:
+        launches[kname] = served[planned]["counts"][kname]
+        worst[kname] = hold_served_plans(
+            f"{cfg.name} {planned}", served[planned]["blocks"],
+            (0, cfg.num_layers - 1), kname, dev, read_counts)
+    logits = {m: run["logits"] for m, run in served.items()}
+    # At bf16 compute the methods' f32 sums, in other orders, flip bf16
+    # roundings that travel through 26 layers: the gap is printed; each
+    # method is held against its plain version above and at f32 below.
+    d, rel = logits_gap(logits["rowsplit"], logits["merge"])
+    print(f"{cfg.name} logits row-split vs merge, bf16 compute: max |d| "
+          f"{d:.4e}, relative Frobenius {rel:.4e} (printed, not held)")
+    print(f"{cfg.name} logits row-split vs merge bit-identical: "
+          f"{torch.equal(logits['rowsplit'], logits['merge'])} (Llama-3.2-1B "
+          "at its shapes: bit-identical)")
+    # The same served plans at f32 compute: the methods' f32 sums only.
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    fwd32 = serve.make_pruned_forward(cfg32)
+    with torch.no_grad():
+        lg32 = {m: fwd32(params, run["blocks"], prompt)
+                for m, run in served.items()}
+    d, rel = logits_gap(lg32["rowsplit"], lg32["merge"])
+    print(f"{cfg.name} logits row-split vs merge at f32 compute: max |d| "
+          f"{d:.4e}, relative Frobenius {rel:.4e} (tol "
+          f"{METHODS_F32_REL_FRO})")
+    if not rel <= METHODS_F32_REL_FRO:
+        raise AssertionError(f"{cfg.name}: the methods differ at f32")
+    del logits, served, lg32
+    clear_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"device memory held after the served plans are freed: "
+          f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB (f32 params "
+          f"{sum(t.numel() for t in tree.leaves(params)) * 4 / 2**30:.2f} "
+          "GiB)")
+    smoke_pruned_parity(cfg.name, ("rowsplit", "merge"), dev, read_counts)
+
+    # Dense generate past the window: prefill 3072 (the window masks the
+    # keys 2048 or more back), then decode steps over a longer cache.
+    g = RG_LONG
+    batch = seeded_inputs(cfg, g["batch"], g["prompt"], dev, SEED + 2)
+    out, counts, _, _ = run_generate(
+        cfg, params, batch["tokens"], dev, card, reset_counts, read_counts,
+        f"{cfg.name} (window {cfg.window})", gen=g["gen"])
+    if any(counts.values()):
+        raise AssertionError(f"dense generate launched {counts}")
+    teacher_forcing(f"{cfg.name} 1 x {g['prompt']}", params, cfg,
+                    {"tokens": out}, g["prompt"], 1)
+    del params, out
+    torch.cuda.empty_cache()
+    return dict(launches=launches, worst=worst)
+
+
+def archs_mamba(dev, card, reset_counts, read_counts) -> None:
+    """Mamba2-1.3B at full width: ``generate`` over 512-token prompts,
+    a profiled decode step, teacher forcing and the bf16 depth witness."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.runtime import steps
+    cfg = get_config("mamba2-1.3b")
+    g = MAMBA_GEN
+    print(f"model {cfg.name}: {cfg.num_layers} SSD layers (no depth cut), "
+          f"d_model {cfg.d_model}, state {cfg.ssm_state}, head_dim "
+          f"{cfg.ssm_head_dim}, expand {cfg.ssm_expand}, chunk "
+          f"{cfg.ssm_chunk}, vocab {cfg.vocab_size} tied; random weights "
+          f"from seed {SEED}; batch {g['batch']} x prompt {g['prompt']} "
+          f"({g['prompt'] // cfg.ssm_chunk} chunks) x gen {g['gen']}")
+    params = M.init_params(cfg, SEED, dev)
+    batch = seeded_inputs(cfg, g["batch"], g["prompt"], dev, SEED + 3)
+    out, counts, _, _ = run_generate(
+        cfg, params, batch["tokens"], dev, card, reset_counts, read_counts,
+        cfg.name, gen=g["gen"])
+    if any(counts.values()):
+        raise AssertionError(f"generate launched {counts}")
+    prefill = steps.make_prefill_step(cfg, cache_len=g["prompt"] + 8)
+    decode = steps.make_decode_step(cfg)
+    with torch.no_grad():
+        st = prefill(params, batch)
+    tok = st["logits"][:, -1].argmax(-1)[:, None]
+
+    def one_step():
+        with torch.no_grad():
+            decode(params, st["caches"], {"tokens": tok}, st["pos"])
+
+    step_ms = host_ms(one_step)
+    busy = profile_device(one_step, top=8)
+    print(f"profile {cfg.name} decode step: device busy {busy:.3f} ms of "
+          f"the {step_ms:.3f} ms warm step (host clock, median of 5; idle "
+          f"share {1 - busy / step_ms:.3f}); steady decode "
+          f"{g['batch'] * 1e3 / step_ms:.1f} tok/s; {card}")
+    teacher_forcing(f"{cfg.name} {g['batch']} x {g['prompt']}", params,
+                    cfg, {"tokens": out}, g["prompt"], ARCH_STEPS)
+    bf16_depth_gaps(cfg.name, params, cfg, {"tokens": out}, g["prompt"],
+                    ARCH_STEPS)
+    del params, st, one_step
+    torch.cuda.empty_cache()
+
+
+def routing_witness(cfg, params, tokens, s) -> list:
+    """For each MoE layer: the tokens of ``tokens[:, :s]`` whose top-k
+    expert set differs between the forward over those s positions (a
+    prefill's) and the forward over all of ``tokens`` (teacher forcing's),
+    and the replicas the sorted dispatch drops past an expert's capacity
+    in each of the two forwards.  Returns [(flips, drops at s, drops at
+    all), ...]."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    rows = []
+    with torch.no_grad():
+        xs = [M.embed_inputs(params, cfg, {"tokens": t})
+              for t in (tokens[:, :s], tokens)]
+        for lp in params["blocks"]:
+            sets, drops = [], []
+            for i, x in enumerate(xs):
+                a, _ = L.attention_apply(lp["attn"], L.norm_apply(
+                    lp["ln1"], x, cfg.norm), cfg)
+                x = x + a
+                h = L.norm_apply(lp["ln2"], x, cfg.norm)
+                xt = h.reshape(-1, cfg.d_model)
+                experts = moe.route(lp["moe"], xt, cfg)[1]
+                keep = moe._sorted_dispatch(xt, experts, cfg,
+                                            moe.TT)[1]["keep"]
+                drops.append(int((~keep).sum()))
+                sets.append(experts.reshape(*h.shape[:2], -1)[:, :s]
+                            .sort(-1).values)
+                xs[i] = x + moe.moe_apply(lp["moe"], h, cfg)[0]
+            rows.append((int((sets[0] != sets[1]).any(-1).sum()), *drops))
+    return rows
+
+
+def archs_mixtral(dev, card, reset_counts, read_counts) -> dict:
+    """Mixtral-8x22B cut to MIXTRAL_LAYERS layers: ``generate`` through the
+    grouped GEMM, both MoE blocks held against the kernel's plain version
+    (``hold_moe_layers``), and teacher forcing on the first generated row.
+    Returns the generate run's launches and the worst |d|.
+
+    Teacher forcing is held on one row, at f32 only, as the reference
+    holds its MoE archs (tests/test_models.py,
+    test_prefill_decode_consistency).  One row is t <= 64 tokens, within
+    the least capacity (one 64-row tile an expert), so no replica drops.
+    With four rows an expert that takes more than its capacity drops
+    replicas, and the 32-token prefill drops others than the 36-token
+    full forward: capacity-limited dispatch is not causal, in the
+    reference too (PERF.md §6).  That gap is printed beside
+    ``routing_witness``'s drops and routing flips."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import moe_gemm
+    from repro_torch.models import model as M
+    full = get_config("mixtral-8x22b")
+    cfg = cut_config(full, MIXTRAL_LAYERS)
+    print(f"model {cfg.name}: cut to {MIXTRAL_LAYERS} of its "
+          f"{full.num_layers} layers (at f32 the whole model's params take "
+          f"~564 GB; the card holds 80 GB), published widths: d_model "
+          f"{cfg.d_model}, {cfg.num_experts} experts top-{cfg.top_k}, d_ff "
+          f"{cfg.d_ff}, heads {cfg.num_heads}/{cfg.num_kv_heads}, "
+          f"{cfg.attention} window {cfg.window}, vocab {cfg.vocab_size} "
+          f"untied; random weights from seed {SEED}")
+    params = M.init_params(cfg, SEED, dev)
+    prompt = seeded_inputs(cfg, SERVE_BATCH, SERVE_PROMPT, dev,
+                           SEED + 4)["tokens"]
+    out, counts, _, _ = run_generate(
+        cfg, params, prompt, dev, card, reset_counts, read_counts, cfg.name,
+        gen=MIXTRAL_GEN)
+    bodies = dict(moe_gemm.LAUNCHES_BY_BODY)
+    per_forward = 3 * MIXTRAL_LAYERS
+    want = dict.fromkeys(counts, 0)
+    want["moe_gemm"] = per_forward * (MIXTRAL_GEN + 1)
+    print(f"{cfg.name}: grouped GEMM launches {counts['moe_gemm']} "
+          f"({per_forward} a forward x {MIXTRAL_GEN + 1} forwards), bodies "
+          f"{bodies} (moe_gemm.body_for: "
+          f"{moe_gemm.body_for(torch.bfloat16, 64, cfg.d_model, cfg.d_ff)} "
+          f"/ {moe_gemm.body_for(torch.bfloat16, 64, cfg.d_ff, cfg.d_model)})")
+    if counts != want or bodies != {"wgmma": want["moe_gemm"]}:
+        raise AssertionError(f"{cfg.name}: launched {counts} {bodies}, "
+                             f"expected {want} all wgmma")
+    worst = hold_moe_layers(cfg, params, prompt, dev, read_counts,
+                            layers=range(MIXTRAL_LAYERS))
+    s = SERVE_PROMPT
+    teacher_forcing(f"{cfg.name} 1 x {s}", params, cfg,
+                    {"tokens": out[:1]}, s, MIXTRAL_GEN)
+    at = list(range(s - 1, s + MIXTRAL_GEN))
+    for c in (cfg, dataclasses.replace(cfg, compute_dtype="float32")):
+        d, rel = logits_gap(stepped_logits(params, c, {"tokens": out}, s,
+                                           MIXTRAL_GEN),
+                            teacher_logits(params, c, {"tokens": out}, at))
+        print(f"{cfg.name} {SERVE_BATCH} x {s} {c.compute_dtype}: prefill "
+              f"+ {MIXTRAL_GEN} decode steps vs teacher forcing, max |d| "
+              f"{d:.4e}, relative Frobenius {rel:.4e} (printed, not held); "
+              f"a layer, (prompt tokens routed to another top-{cfg.top_k} "
+              f"set, replicas dropped at {s} and at {s + MIXTRAL_GEN} "
+              f"tokens a row): "
+              f"{routing_witness(c, params, out, s)}")
+    del params, out
+    torch.cuda.empty_cache()
+    return dict(launches=want["moe_gemm"], worst=worst)
+
+
+def archs_dense(dev, card, reset_counts, read_counts) -> None:
+    """Granite-3-2B and MusicGen-large at full depth, Command-R-35B,
+    Qwen2-72B and InternVL2-76B cut: prefill and decode steps held to
+    teacher forcing; no kernel of ours may launch."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    for arch, layers in ARCH_RUNS:
+        full = get_config(arch)
+        cfg = full if layers is None else cut_config(full, layers)
+        depth = "no depth cut" if layers is None else (
+            f"cut to {layers} of {full.num_layers} layers: at full depth "
+            f"its f32 params do not fit the card")
+        print(f"model {arch}: {cfg.num_layers} layers ({depth}), d_model "
+              f"{cfg.d_model}, d_ff {cfg.d_ff}, heads {cfg.num_heads}/"
+              f"{cfg.num_kv_heads}, vocab {cfg.vocab_size}, norm {cfg.norm}, "
+              f"mlp {cfg.mlp}, inputs {cfg.input_mode}, "
+              f"{'sinusoidal' if not cfg.rope_theta else 'rope'} positions, "
+              f"parallel_block {cfg.parallel_block}, qkv_bias "
+              f"{cfg.qkv_bias}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        params = M.init_params(cfg, SEED, dev)
+        batch = seeded_inputs(cfg, SERVE_BATCH, SERVE_PROMPT + ARCH_STEPS,
+                              dev, SEED + 5)
+        reset_counts()
+        pre_ms, step_ms = teacher_forcing(
+            f"{arch} {SERVE_BATCH} x {SERVE_PROMPT}", params, cfg, batch,
+            SERVE_PROMPT, ARCH_STEPS)
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        print(f"{arch}: prefill {pre_ms:.3f} ms, decode step median "
+              f"{step_ms:.3f} ms (host clock, synchronised, after a warm "
+              f"prefill); peak device memory {peak:.2f} GiB; launches "
+              f"{counts}; {card}")
+        if any(counts.values()):
+            raise AssertionError(f"{arch}: launched {counts}")
+        if arch in BF16_DEPTHS:
+            bf16_depth_gaps(arch, params, cfg, batch, SERVE_PROMPT,
+                            ARCH_STEPS)
+        del params, batch
+        torch.cuda.empty_cache()
+
+
+def archs_smoke(dev) -> None:
+    """The new smoke configs at f32 compute, TF32 off: prefill and three
+    decode steps on the card and on the CPU from the same params and
+    inputs; logits and every layer's cache at SMOKE_TOL."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as M
+    for arch in NEW_ARCHS:
+        cfg = dataclasses.replace(get_smoke_config(arch),
+                                  compute_dtype="float32")
+        p_cpu = M.init_params(cfg, SEED, "cpu")
+        p_dev = to_device(p_cpu, dev)
+        b_cpu = {k: v.cpu() for k, v in seeded_inputs(
+            cfg, 2, 14, dev, SEED + 6).items()}
+        worst = 0.0
+        runs = {}
+        for where, p in (("cpu", p_cpu), ("card", p_dev)):
+            b = {k: v.to(p["final_norm"]["scale"].device)
+                 for k, v in b_cpu.items()}
+            with torch.no_grad():
+                caches, lg, pos = M.prefill(p, cfg, {k: v[:, :11] for k, v
+                                                     in b.items()},
+                                            cache_len=16)
+                outs = [(lg, caches)]
+                for i in range(11, 14):
+                    lg, caches = M.decode_step(
+                        p, cfg, caches, {k: v[:, i:i + 1] for k, v in
+                                         b.items()}, pos)
+                    outs.append((lg, caches))
+                    pos = pos + 1
+            runs[where] = outs
+        for step, ((lw, cw), (lg, cg)) in enumerate(zip(runs["cpu"],
+                                                        runs["card"])):
+            worst = max(worst, check_close(f"smoke {arch} step {step}",
+                                           lg.cpu(), lw, SMOKE_TOL)[0])
+            for li, (gc, wc) in enumerate(zip(cg, cw)):
+                for name in wc:
+                    worst = max(worst, check_close(
+                        f"smoke {arch} step {step} layer {li} {name}",
+                        gc[name].cpu(), wc[name], SMOKE_TOL)[0])
+        print(f"smoke {arch} f32: prefill 2 x 11 + 3 decode steps, card vs "
+              f"CPU, logits and caches: max |d| {worst:.3e} (tol rtol "
+              f"{SMOKE_TOL['rtol']} atol {SMOKE_TOL['atol']})")
+
+
+def archs(dev, card, reset_counts, read_counts) -> dict:
+    """The ``archs`` phase.  Returns each kernel's main-path launches (the
+    RecurrentGemma serving runs and the Mixtral generate run) and its
+    worst |d| against its plain version at this phase's shapes."""
+    rg = archs_recurrentgemma(dev, card, reset_counts, read_counts)
+    archs_mamba(dev, card, reset_counts, read_counts)
+    mix = archs_mixtral(dev, card, reset_counts, read_counts)
+    archs_dense(dev, card, reset_counts, read_counts)
+    archs_smoke(dev)
+    return dict(launches=dict(rg["launches"], moe_gemm=mix["launches"]),
+                worst=dict(rg["worst"], moe_gemm=mix["worst"]))
 
 
 def flash_inputs(gen, b, s, h, kvh, dh, dt, dev):
@@ -2471,8 +3168,7 @@ def dense_olmoe(dev, card, read_counts) -> None:
     from repro_torch.runtime import steps
     from repro_torch.tree import leaves as flat
     full = get_config("olmoe-1b-7b")
-    cfg = dataclasses.replace(full, num_layers=OLMOE_CUT,
-                              segments=((("moe",), OLMOE_CUT),))
+    cfg = cut_config(full, OLMOE_CUT)
     torch.cuda.empty_cache()
     state = steps.init_train_state(cfg, SEED, device=dev)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -2703,12 +3399,11 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, SRC)
-    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.configs import get_config
     from repro_torch.core import (Epilogue, PlanPolicy, build_plan, csr,
                                   prune_to_csr)
     from repro_torch.kernels import (_cuda, flash_attention, merge_spmm,
                                      moe_gemm, ops, rowsplit_spmm, sddmm)
-    from repro_torch.launch import serve
     from repro_torch.models import model as M
     from repro_torch.tune.timing import INNER
 
@@ -3021,74 +3716,20 @@ def main() -> int:
     prompt = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
                            generator=g, device=dev)
     forwards = 2                      # serve_pruned's cold + warm calls
-    serving = {name: 0 for name in KERNELS}
-    logits = {}
     # (kernel, --spmm-method, the plans' method): rowgroup runs the
     # row-split kernel once a length bucket.
-    for kname, method, planned in (("rowsplit_spmm", "auto", "rowsplit"),
-                                   ("merge_spmm", "merge", "merge"),
-                                   ("rowsplit_spmm", "rowgroup",
-                                    "rowgroup")):
-        reset_counts()
-        rep = serve.serve_pruned(cfg, params, prompt, KEEP,
-                                 policy=PlanPolicy(method=method))
-        counts = read_counts()
-        for name in KERNELS:
-            serving[name] += counts[name]
-        blocks = serve.prune_ffn_blocks(params, cfg, KEEP,
-                                        PlanPolicy(method=method))
-        # Launches a forward: one a matrix, one a bucket for rowgroup.
-        per_forward = sum(max(1, len(sl.plan.meta.extra)) if planned ==
-                          "rowgroup" else 1 for blk in blocks
-                          for sl in blk["mlp"].values())
-        if planned == "rowgroup":
-            groups = sorted({(name, sl.plan.meta.extra)
-                             for blk in blocks
-                             for name, sl in blk["mlp"].items()})
-            print(f"serve method=rowgroup: length buckets (m_g, l_g) of the "
-                  f"{len(blocks)} layers' matrices: {groups}")
-        used = KERNELS[kname]["method"]
-        print(f"serve method={method}: methods {rep.methods}; plan "
-              f"{rep.plan_s:.3f} s, cold forward {rep.cold_s * 1e3:.2f} ms, "
-              f"warm forward {rep.warm_s * 1e3:.2f} ms, {rep.tok_per_s:.0f} "
-              f"tok/s; plans built during serving {rep.replans}; launches "
-              f"{counts} over {forwards} forwards ("
-              f"{counts[kname] // forwards} of {kname} a forward); device "
-              f"memory "
-              f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB held, "
-              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB "
-              f"peak (params, cached plans of the run so far); {card}")
-        want = per_forward * forwards
-        if set(rep.methods.values()) != {planned} or \
-                counts[kname] != want or sum(counts.values()) != want:
-            raise AssertionError(
-                f"method={method}: expected {want} launches of {kname} "
-                f"alone, got {counts} (plans {rep.methods})")
-        if counters[used].LAUNCHES_BY_BODY != {"f32x4": want}:
-            raise AssertionError(f"serving {used} ran bodies "
-                                 f"{counters[used].LAUNCHES_BY_BODY}, "
-                                 "expected f32x4 (B (d_in, 128) f32)")
-        lg = rep.logits
-        if lg.shape != (SERVE_BATCH, SERVE_PROMPT, cfg.vocab_size) or \
-                not torch.isfinite(lg).all():
-            raise AssertionError(f"bad logits: {lg.shape}, finite "
-                                 f"{torch.isfinite(lg).all().item()}")
-        logits[planned] = lg
-        fwd = serve.make_pruned_forward(cfg)
-
-        def forward():
-            with torch.no_grad():
-                fwd(params, blocks, prompt)
-
-        # The SpMM kernels by name: rowsplit_kernel; merge_range_kernel
-        # and merge_fixup_kernel.
-        part = "merge_" if kname == "merge_spmm" else "rowsplit_kernel"
-        dev_ms, spmm_ms = profile_device(forward, part=part)
-        print(f"profile method={method}: device busy {dev_ms:.3f} ms of the "
-              f"{rep.warm_s * 1e3:.2f} ms warm forward (idle share "
-              f"{1 - dev_ms / (rep.warm_s * 1e3):.3f}), the "
-              f"{per_forward} SpMM launches {spmm_ms:.3f} ms; {card}")
-        del rep, blocks, fwd
+    served = serve_methods(cfg, params, prompt,
+                           (("rowsplit_spmm", "auto", "rowsplit"),
+                            ("merge_spmm", "merge", "merge"),
+                            ("rowsplit_spmm", "rowgroup", "rowgroup")),
+                           dev, card, reset_counts, read_counts)
+    # Comprehensions only: a loop variable would keep a run's pruned
+    # blocks alive through the later phases.
+    serving = {name: sum(r["counts"][name] for r in served.values())
+               for name in KERNELS}
+    logits = {m: r["logits"] for m, r in served.items()}
+    per_forward = served["rowgroup"]["per_forward"]
+    del served
     serve_gap("logits row-split vs merge", logits["rowsplit"],
               logits["merge"])
     # One length bucket a matrix (the pruned FFN keeps a fixed share of
@@ -3106,24 +3747,8 @@ def main() -> int:
 
     # The same small model, f32 compute, on the card (kernels) and on the
     # CPU (plain versions): the port's whole path against its reference.
-    scfg = dataclasses.replace(get_smoke_config("llama3.2-1b"),
-                               compute_dtype="float32")
-    sp_cpu = M.init_params(scfg, SEED, "cpu")
-    sp_gpu = to_device(sp_cpu, dev)
-    tokens = torch.randint(0, scfg.vocab_size, (2, 16),
-                           generator=torch.Generator().manual_seed(3))
-    fwd = serve.make_pruned_forward(scfg)
-    for method in ("rowsplit", "merge", "rowgroup"):
-        pol = PlanPolicy(method=method)
-        with torch.no_grad():
-            want = fwd(sp_cpu, serve.prune_ffn_blocks(sp_cpu, scfg, KEEP,
-                                                      pol), tokens)
-            got = fwd(sp_gpu, serve.prune_ffn_blocks(sp_gpu, scfg, KEEP,
-                                                     pol), tokens.to(dev))
-        err = (got.cpu() - want).abs().max().item()
-        print(f"smoke model f32, {method}: card vs CPU max |d| {err:.3e} "
-              f"(tol rtol {SMOKE_TOL['rtol']} atol {SMOKE_TOL['atol']})")
-        torch.testing.assert_close(got.cpu(), want, **SMOKE_TOL)
+    smoke_pruned_parity("llama3.2-1b", ("rowsplit", "merge", "rowgroup"),
+                        dev, read_counts)
     done("serving", t0)
 
     # ----------------------------------------------------------- online --
@@ -3167,6 +3792,13 @@ def main() -> int:
     worst["moe_gemm"] = max(worst["moe_gemm"], dec["worst"])
     done("decode", t0)
 
+    # ------------------------------------------------------------ archs --
+    t0 = phase("archs")
+    arch = archs(dev, card, reset_counts, read_counts)
+    for name, err in arch["worst"].items():
+        worst[name] = max(worst[name], err)
+    done("archs", t0)
+
     # ---------------------------------------------------------- summary --
     rows = []
     for kname, kspec in KERNELS.items():
@@ -3179,7 +3811,8 @@ def main() -> int:
                     "dense_training": dense[kname],
                     "attention": attn["launches"]
                     if kname == "flash_attention" else 0,
-                    "decode": dec["launches"] if kname == "moe_gemm" else 0}
+                    "decode": dec["launches"] if kname == "moe_gemm" else 0,
+                    "archs": arch["launches"].get(kname, 0)}
         row = {
             "name": kname, "route": "cuda", "source": kspec["source"],
             "replaces": kspec["replaces"],
@@ -3232,9 +3865,14 @@ def main() -> int:
           "the train CLI's subprocesses are not counted), the attention "
           "phase's "
           f"main-path run ({2 * len(FLASH_MODEL_SHAPES)} ops.flash_attention "
-          f"calls) and the OLMoE generate run ({GEN_LEN + 1} forwards); "
+          f"calls), the OLMoE generate run ({GEN_LEN + 1} forwards) and "
+          "the archs phase's main paths (RecurrentGemma-2B's two serving "
+          "runs, 156 launches each, and the Mixtral-8x22B cut's "
+          f"generate, {MIXTRAL_GEN + 1} forwards); "
           "max_abs_err: worst parity case, forward, gradient, the online "
-          "buckets' widths, the MoE layers and the attention layers)")
+          "buckets' widths, the MoE layers (OLMoE's and the Mixtral "
+          "cut's), RecurrentGemma-2B's served plans and the attention "
+          "layers, each against its plain version)")
     print(json.dumps({"kernels": rows}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 """Architecture registry: ``get_config(name)`` / ``get_smoke_config(name)``.
 
-Holds the architectures the port runs so far (the reference registers
-ten; the others arrive with the slices that port their block types).
+The reference's ten architectures, selectable through ``--arch <id>`` in
+the launchers.
 """
 from __future__ import annotations
 
@@ -10,8 +10,16 @@ import importlib
 from .base import ModelConfig
 
 _MODULES = {
-    "llama3.2-1b": "llama3_2_1b",
     "olmoe-1b-7b": "olmoe_1b_7b",
+    "mixtral-8x22b": "mixtral_8x22b",
+    "command-r-35b": "command_r_35b",
+    "granite-3-2b": "granite_3_2b",
+    "qwen2-72b": "qwen2_72b",
+    "llama3.2-1b": "llama3_2_1b",
+    "musicgen-large": "musicgen_large",
+    "internvl2-76b": "internvl2_76b",
+    "mamba2-1.3b": "mamba2_1_3b",
+    "recurrentgemma-2b": "recurrentgemma_2b",
 }
 
 ARCHS = tuple(_MODULES)

@@ -3,8 +3,7 @@
 Every ported architecture gets a ``configs/<id>.py`` exporting ``CONFIG``
 (the published numbers) and ``smoke_config()`` (a reduced same-family
 variant for CPU tests).  The fields are the reference's, so a config reads
-the same in both packages; the model code of this port implements the
-``attn`` and ``moe`` block types.
+the same in both packages.
 """
 from __future__ import annotations
 

@@ -3,6 +3,9 @@ prefill scoring through the SpMM engine, or online serving of ragged
 requests over shape-bucket programs.
 
     python -m repro_torch.launch.serve --arch olmoe-1b-7b --gen 16
+    python -m repro_torch.launch.serve --arch mamba2-1.3b --gen 16
+    python -m repro_torch.launch.serve --arch recurrentgemma-2b \
+        --prune-ffn 0.25
     python -m repro_torch.launch.serve --arch olmoe-1b-7b --smoke --gen 4 \
         --device cpu
     python -m repro_torch.launch.serve --prune-ffn 0.25
@@ -12,9 +15,12 @@ requests over shape-bucket programs.
     python -m repro_torch.launch.serve --prune-ffn 0.25 --serve
     python -m repro_torch.launch.serve --smoke --prune-ffn 0.25 --device cpu
 
-Without ``--prune-ffn``, ``generate`` prefills the prompt into KV caches
-and decodes ``--gen`` tokens greedily; MoE blocks run their expert FFNs
-through the grouped GEMM kernel on the card.  With ``--prune-ffn``, every
+Without ``--prune-ffn``, ``generate`` prefills the prompt into caches (KV
+for attention, the recurrent state of SSD and RG-LRU blocks) and decodes
+``--gen`` tokens greedily; MoE blocks run their expert FFNs through the
+grouped GEMM kernel on the card.  The CLI drives token models; the
+embeddings-input archs (MusicGen, InternVL2) run ``steps.make_prefill_step``
+/ ``make_decode_step`` on a batch of ``embeds``.  With ``--prune-ffn``, every
 FFN matrix is magnitude-pruned to CSR once, its plan built once through
 the engine cache, and the forward then runs every FFN matmul as a planned
 SpMM — the hand-written CUDA kernels on the card, their plain versions on
@@ -45,7 +51,7 @@ from repro_torch.models import model as M
 from repro_torch.models import sparse as S
 from repro_torch.runtime import steps as R
 
-_PRUNABLE_BTYPES = ("attn",)   # ported blocks that own a dense "mlp"
+_PRUNABLE_BTYPES = ("attn", "rglru")   # blocks that own a dense "mlp"
 
 
 def _check_replans(before, after) -> int:
@@ -105,9 +111,10 @@ def check_prunable(cfg):
     unsupported = btypes - set(_PRUNABLE_BTYPES)
     if unsupported:
         raise SystemExit(
-            f"--prune-ffn needs every block to own a dense MLP (ported "
-            f"btypes {_PRUNABLE_BTYPES}); arch has {sorted(unsupported)} "
-            "blocks (MoE experts have no per-block dense FFN to prune)")
+            f"--prune-ffn needs every block to own a dense MLP "
+            f"(btypes {_PRUNABLE_BTYPES}); arch has {sorted(unsupported)} "
+            "blocks (MoE experts / SSD cores have no per-block dense FFN "
+            "to prune)")
 
 
 def prune_ffn_blocks(params, cfg, keep: float, policy=None) -> list:
@@ -130,7 +137,7 @@ def make_pruned_forward(cfg):
     btypes = cfg.block_types()
 
     def fwd(params, blocks, tokens):
-        h = M.embed_inputs(params, cfg, tokens)
+        h = M.embed_inputs(params, cfg, {"tokens": tokens})
         for btype, lp in zip(btypes, blocks):
             h, _, _ = M.block_apply(lp, btype, h, cfg)
         h = L.norm_apply(params["final_norm"], h, cfg.norm)
@@ -361,6 +368,11 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.input_mode != "tokens":
+        raise SystemExit(
+            f"--arch {args.arch}: serve.py drives token models; "
+            "embeddings-mode archs use the prefill/decode steps directly "
+            "(repro_torch.runtime.steps)")
     if args.prune_ffn > 0.0:
         check_prunable(cfg)
     params = M.init_params(cfg, args.seed, device)

@@ -1,6 +1,6 @@
-"""Transformer building blocks: RMSNorm, RoPE, causal GQA attention over
-a prefill, one-token attention against a KV cache, and the SwiGLU/GELU
-MLP.
+"""Transformer building blocks: RMSNorm and LayerNorm, RoPE and
+sinusoidal positions, causal GQA attention (full or windowed) over a
+prefill, one-token attention against a KV cache, and the SwiGLU/GELU MLP.
 
 Pure functions over plain dicts of tensors, in the reference's layouts
 (``repro.models.layers``): weights are ``(d_in, d_out)`` and used as
@@ -15,21 +15,40 @@ import torch.nn.functional as F
 # ---------------------------------------------------------------- norms ----
 
 
+NORMS = ("rmsnorm", "layernorm")
+
+
+def _check_norm(kind: str) -> None:
+    if kind not in NORMS:
+        raise ValueError(f"norm {kind!r}: expected one of {NORMS}")
+
+
 def init_norm(d: int, kind: str, dtype, device) -> dict:
-    if kind != "rmsnorm":
-        raise ValueError(f"norm {kind!r} is not ported yet (rmsnorm only)")
-    return {"scale": torch.ones(d, dtype=dtype, device=device)}
+    _check_norm(kind)
+    p = {"scale": torch.ones(d, dtype=dtype, device=device)}
+    if kind == "layernorm":
+        p["bias"] = torch.zeros(d, dtype=dtype, device=device)
+    return p
 
 
 def norm_apply(p: dict, x: torch.Tensor, kind: str = "rmsnorm",
                eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm: statistics in f32, elementwise math in the input dtype
-    (the reference's cast order)."""
-    if kind != "rmsnorm":
-        raise ValueError(f"norm {kind!r} is not ported yet (rmsnorm only)")
-    ms = torch.mean(torch.square(x.to(torch.float32)), -1, keepdim=True)
-    y = x * torch.rsqrt(ms + eps).to(x.dtype)
-    return y * p["scale"].to(x.dtype)
+    """RMSNorm or LayerNorm: statistics in f32, elementwise math in the
+    input dtype, then scale and (LayerNorm) bias (the reference's cast
+    order)."""
+    _check_norm(kind)
+    xf = x.to(torch.float32)
+    if kind == "rmsnorm":
+        ms = torch.mean(torch.square(xf), -1, keepdim=True)
+        y = x * torch.rsqrt(ms + eps).to(x.dtype)
+    else:
+        mu = torch.mean(xf, -1, keepdim=True)
+        var = torch.mean(torch.square(xf - mu), -1, keepdim=True)
+        y = (x - mu.to(x.dtype)) * torch.rsqrt(var + eps).to(x.dtype)
+    y = y * p["scale"].to(x.dtype)
+    if "bias" in p:
+        y = y + p["bias"].to(x.dtype)
+    return y
 
 
 # ----------------------------------------------------------------- RoPE ----
@@ -49,6 +68,35 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """Absolute sinusoidal positions (MusicGen): positions (..., s) →
+    f32 (..., s, d), sines then cosines."""
+    half = d // 2
+    freq = 10_000.0 ** (-torch.arange(half, dtype=torch.float32,
+                                      device=positions.device) / half)
+    ang = positions[..., None].to(torch.float32) * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+# ----------------------------------------------------------------- conv ----
+
+
+def causal_conv(x, conv, state=None):
+    """Causal depthwise conv along the sequence (the SSD and RG-LRU
+    blocks').  x (b, s, c), conv (w, c); ``state`` (b, w-1, c) holds the
+    inputs before x (zeros when None).  Returns (out, new_state), the new
+    state x's last w - 1 inputs in x's dtype; the taps are summed in
+    order, in x's dtype."""
+    w = conv.shape[0]
+    if state is None:
+        pad = F.pad(x, (0, 0, w - 1, 0))
+    else:
+        pad = torch.cat([state.to(x.dtype), x], dim=1)
+    new_state = pad[:, -(w - 1):] if w > 1 else None
+    out = sum(pad[:, i:i + x.shape[1]] * conv[i] for i in range(w))
+    return out, new_state
 
 
 # ------------------------------------------------------------ attention ----
@@ -91,9 +139,12 @@ def _qkv(p, x, cfg):
             v.reshape(b, s, kvh, dh))
 
 
-def causal_attention(q, k, v, *, softcap: float = 0.0) -> torch.Tensor:
+def causal_attention(q, k, v, *, softcap: float = 0.0,
+                     window: int | None = None) -> torch.Tensor:
     """Causal GQA attention over a whole prefill.  q (b, s, h, dh), k/v
-    (b, s, kv, dh) → (b, s, h, dh) in q's dtype.
+    (b, s, kv, dh) → (b, s, h, dh) in q's dtype.  ``window`` (sliding or
+    local attention) also masks the keys ``window`` or more positions
+    back: query t sees keys t - window + 1 … t.
 
     The reference's blockwise online softmax with one (query, key) block:
     scores in f32 from the inputs' exact f32 values, p cast to v's dtype
@@ -109,6 +160,8 @@ def causal_attention(q, k, v, *, softcap: float = 0.0) -> torch.Tensor:
         sc = softcap * torch.tanh(sc / softcap)
     pos = torch.arange(s, device=q.device)
     mask = pos[:, None] >= pos[None, :]
+    if window is not None:
+        mask &= pos[None, :] > pos[:, None] - window
     sc = torch.where(mask, sc, float("-inf"))
     m = sc.amax(-1, keepdim=True)
     p = torch.exp(sc - m)
@@ -119,12 +172,14 @@ def causal_attention(q, k, v, *, softcap: float = 0.0) -> torch.Tensor:
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, dh).to(q.dtype)
 
 
-def decode_attention(q, k_cache, v_cache, pos, *,
-                     softcap: float = 0.0) -> torch.Tensor:
+def decode_attention(q, k_cache, v_cache, pos, *, softcap: float = 0.0,
+                     window: int | None = None) -> torch.Tensor:
     """One-token attention against a cache.  q (b, 1, h, dh); caches
     (b, S, kv, dh); pos (b,) the current position (the number of tokens
     already in the cache).  Attends over the whole cache, masked to
-    ``kpos <= pos``.
+    ``kpos <= pos`` and, with a ``window`` shorter than the cache, to
+    ``kpos > pos - window``: the keys ``pos + 1 - window … pos``, the ones
+    the reference slices out of the cache.
 
     The reference's numerics: scores from the inputs' exact f32 values
     (bf16 products are exact in f32), softmax in f32, p cast to v's dtype
@@ -140,6 +195,8 @@ def decode_attention(q, k_cache, v_cache, pos, *,
         sc = softcap * torch.tanh(sc / softcap)
     kpos = torch.arange(s_cache, device=q.device)
     mask = kpos[None, :] <= pos[:, None]                     # (b, S)
+    if window is not None and window < s_cache:
+        mask &= kpos[None, :] > pos[:, None] - window
     sc = torch.where(mask[:, None, None], sc, float("-inf"))
     m = sc.amax(-1, keepdim=True)
     p = torch.exp(sc - m)
@@ -150,8 +207,10 @@ def decode_attention(q, k_cache, v_cache, pos, *,
 
 
 def attention_apply(p, x, cfg, *, positions=None, cache=None, pos=None):
-    """Causal self-attention.  x (b, s, d).  Returns (out, new_cache),
-    cache = {"k", "v"} (b, S, kv, dh) in the compute dtype:
+    """Causal self-attention, over ``cfg.window`` keys for sliding-window
+    and local attention (``cfg.attention`` "swa" or "local").  x (b, s,
+    d).  Returns (out, new_cache), cache = {"k", "v"} (b, S, kv, dh) in
+    the compute dtype:
 
     * no cache: a whole sequence; the new cache is its k and v;
     * ``s == 1`` with a cache: a decode step at ``pos`` (b,) — k and v are
@@ -161,8 +220,6 @@ def attention_apply(p, x, cfg, *, positions=None, cache=None, pos=None):
     * ``s > 1`` with a cache: a prefill into an allocated cache — causal
       attention over the prompt, k and v padded with zeros to S.
     """
-    if cfg.attention != "full":
-        raise ValueError(f"attention {cfg.attention!r} is not ported yet")
     b, s, _ = x.shape
     q, k, v = _qkv(p, x, cfg)
     if positions is None:
@@ -171,18 +228,20 @@ def attention_apply(p, x, cfg, *, positions=None, cache=None, pos=None):
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     softcap = cfg.attn_logit_softcap
+    window = None if cfg.attention == "full" else cfg.window
     if cache is None:
-        out = causal_attention(q, k, v, softcap=softcap)
+        out = causal_attention(q, k, v, softcap=softcap, window=window)
         new_cache = {"k": k, "v": v}
     elif s == 1:
         rows = torch.arange(b, device=x.device)
         idx = (rows, pos.long())
         kc = cache["k"].index_put(idx, k[:, 0])
         vc = cache["v"].index_put(idx, v[:, 0])
-        out = decode_attention(q, kc, vc, pos, softcap=softcap)
+        out = decode_attention(q, kc, vc, pos, softcap=softcap,
+                               window=window)
         new_cache = {"k": kc, "v": vc}
     else:
-        out = causal_attention(q, k, v, softcap=softcap)
+        out = causal_attention(q, k, v, softcap=softcap, window=window)
         pad = (0, 0, 0, 0, 0, cache["k"].shape[1] - s)
         new_cache = {"k": F.pad(k, pad), "v": F.pad(v, pad)}
     out = out.reshape(b, s, -1) @ p["wo"].to(cfg.cdtype)

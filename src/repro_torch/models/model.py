@@ -1,14 +1,21 @@
-"""Decoder model over attention and MoE blocks (the ``attn`` and ``moe``
-block types of the reference's ``repro.models.model``).
+"""Decoder model over heterogeneous block stacks (the reference's
+``repro.models.model``).  A model is a sequence of *segments*
+``(pattern, repeat)``, each pattern a tuple of block types:
 
-Parameters are a plain dict: ``embed`` (vocab, d), ``unembed`` when
-untied, ``final_norm``, and ``blocks`` — one dict per layer (``ln1``,
-``attn``, ``ln2``, and ``mlp`` or ``moe``), in layer order.  The reference
-stacks each segment's layers on a leading axis for ``lax.scan``; eager
-PyTorch walks a list instead (``repro_torch.convert`` unstacks a reference
-param tree), and the KV caches are a list of per-layer dicts likewise.
-Entry points: ``loss_and_aux`` (training), ``prefill`` and
-``decode_step``.  SSD and RG-LRU blocks arrive with later slices.
+  attn   — pre-norm GQA attention (full, sliding-window or local) + MLP
+  moe    — attention + mixture-of-experts FFN (merge-based dispatch)
+  ssd    — Mamba2 state-space block
+  rglru  — RG-LRU recurrent block + MLP (RecurrentGemma)
+
+Parameters are a plain dict: ``embed`` (vocab, d) for token inputs,
+``unembed`` when untied or when the inputs are embeddings, ``final_norm``,
+and ``blocks`` — one dict per layer, in layer order.  The reference stacks
+each segment's layers on a leading axis for ``lax.scan``; eager PyTorch
+walks a list instead (``repro_torch.convert`` unstacks a reference param
+tree), and the caches (KV for attention, conv and recurrent state for SSD
+and RG-LRU) are a list of per-layer dicts likewise.  Entry points:
+``loss_and_aux`` (training), ``prefill`` and ``decode_step``; a batch
+holds ``tokens`` (b, s) or, for embedding inputs, ``embeds`` (b, s, d).
 """
 from __future__ import annotations
 
@@ -20,32 +27,46 @@ from repro_torch.tree import paths
 from . import layers as L
 from . import moe as MOE
 from . import losses
+from . import rglru as R
+from . import ssm as S
 
-_BTYPES = ("attn", "moe")      # the block types ported so far
+BTYPES = ("attn", "moe", "ssd", "rglru")
 
 
 def _check_btype(btype: str) -> None:
-    if btype not in _BTYPES:
-        raise ValueError(f"block type {btype!r} is not ported yet "
-                         f"(ported: {_BTYPES})")
+    if btype not in BTYPES:
+        raise ValueError(f"block type {btype!r}: expected one of {BTYPES}")
 
 
 def init_block(gen: torch.Generator, btype: str, cfg) -> dict:
     _check_btype(btype)
     d, dev = cfg.d_model, gen.device
-    p = {"ln1": L.init_norm(d, cfg.norm, torch.float32, dev),
-         "attn": L.init_attention(gen, cfg),
-         "ln2": L.init_norm(d, cfg.norm, torch.float32, dev)}
-    if btype == "attn":
-        p["mlp"] = L.init_mlp(gen, cfg)
+    p = {"ln1": L.init_norm(d, cfg.norm, torch.float32, dev)}
+    if btype == "ssd":
+        p["ssd"] = S.init_ssd(gen, cfg)
+        return p
+    if btype == "rglru":
+        p["rec"] = R.init_rglru(gen, cfg)
     else:
+        p["attn"] = L.init_attention(gen, cfg)
+    p["ln2"] = L.init_norm(d, cfg.norm, torch.float32, dev)
+    if btype == "moe":
         p["moe"] = MOE.init_moe(gen, cfg)
+    else:
+        p["mlp"] = L.init_mlp(gen, cfg)
     return p
 
 
 def init_block_cache(btype: str, cfg, batch: int, cache_len: int,
                      device) -> dict:
+    """A zeroed cache of one block: KV (b, cache_len, kv, dh) in the
+    compute dtype for attention; for SSD and RG-LRU the recurrent state,
+    whose size does not depend on ``cache_len``."""
     _check_btype(btype)
+    if btype == "ssd":
+        return S.init_ssd_state(cfg, batch, device)
+    if btype == "rglru":
+        return R.init_rglru_state(cfg, batch, device)
     shape = (batch, cache_len, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=cfg.cdtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.cdtype, device=device)}
@@ -53,13 +74,15 @@ def init_block_cache(btype: str, cfg, batch: int, cache_len: int,
 
 def init_params(cfg, seed: int, device="cuda") -> dict:
     """Random parameters from ``seed`` on ``device`` (weights drawn on the
-    device itself: a full-width model never passes through the host)."""
-    if cfg.input_mode != "tokens":
-        raise ValueError("only token-input models are ported yet")
+    device itself: a full-width model never passes through the host).  An
+    embeddings-input model (a stub modality frontend gives the
+    embeddings) has an ``unembed`` and no ``embed``."""
     gen = torch.Generator(device=device).manual_seed(seed)
     d, v = cfg.d_model, cfg.vocab_size
-    params = {"embed": L.normal_init(gen, (v, d), cfg.pdtype, d ** -0.5)}
-    if not cfg.tie_embeddings:
+    params = {}
+    if cfg.input_mode == "tokens":
+        params["embed"] = L.normal_init(gen, (v, d), cfg.pdtype, d ** -0.5)
+    if cfg.input_mode != "tokens" or not cfg.tie_embeddings:
         params["unembed"] = L.normal_init(gen, (v, d), cfg.pdtype, d ** -0.5)
     params["final_norm"] = L.init_norm(d, cfg.norm, torch.float32,
                                        gen.device)
@@ -85,19 +108,32 @@ def stack_keys(params, cfg) -> list[str]:
 
 
 def init_caches(cfg, batch: int, cache_len: int, device) -> list:
-    """One zeroed KV cache per layer, in layer order."""
+    """One zeroed cache per layer, in layer order."""
     return [init_block_cache(bt, cfg, batch, cache_len, device)
             for bt in cfg.block_types()]
 
 
 def block_apply(p, btype, x, cfg, *, positions=None, cache=None, pos=None,
                 use_kernel: bool | None = None):
-    """One pre-norm block (sequential, or ``parallel_block``): attention,
-    then the MLP or the MoE (``use_kernel`` as in ``moe.moe_apply``).
-    Returns (x, new_cache, aux)."""
+    """One pre-norm block.  Attention blocks (sequential, or
+    ``parallel_block``): attention, then the MLP or the MoE (``use_kernel``
+    as in ``moe.moe_apply``).  SSD: the state-space mixer.  RG-LRU: the
+    recurrent mixer, then the MLP.  A recurrent block decodes from its
+    cache when ``x`` is one token; a longer ``x`` is a prefill from a zero
+    state (the cache passed is only a shape donor).  Returns (x,
+    new_cache, aux)."""
     _check_btype(btype)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = L.norm_apply(p["ln1"], x, cfg.norm)
+    if btype in ("ssd", "rglru"):
+        state = cache if (cache is not None and x.shape[1] == 1) else None
+        if btype == "ssd":
+            out, new_cache = S.ssd_apply(p["ssd"], h, cfg, state=state)
+            return x + out, new_cache, aux
+        out, new_cache = R.rglru_apply(p["rec"], h, cfg, state=state)
+        x = x + out
+        h = L.norm_apply(p["ln2"], x, cfg.norm)
+        return x + L.mlp_apply(p["mlp"], h, cfg), new_cache, aux
     attn_out, new_cache = L.attention_apply(p["attn"], h, cfg,
                                             positions=positions, cache=cache,
                                             pos=pos)
@@ -137,17 +173,26 @@ def forward(params, cfg, h, *, positions=None, caches=None, pos=None,
     return h, new_caches, aux_total
 
 
-def embed_inputs(params, cfg, tokens: torch.Tensor) -> torch.Tensor:
+def embed_inputs(params, cfg, batch: dict, *, positions=None):
+    """The batch's inputs (b, s, d) in the compute dtype: ``tokens``
+    looked up in ``embed`` (times sqrt(d) with ``embed_scale``), or
+    ``embeds`` as given; plus sinusoidal positions (``positions``,
+    default 0 … s-1) when ``rope_theta`` is 0."""
+    if cfg.input_mode == "tokens":
+        h = params["embed"][batch["tokens"]].to(cfg.cdtype)
+        if cfg.embed_scale:
+            h = h * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.cdtype)
+    else:
+        h = batch["embeds"].to(cfg.cdtype)
     if cfg.rope_theta == 0.0:
-        raise ValueError("sinusoidal positions are not ported yet")
-    h = params["embed"][tokens].to(cfg.cdtype)
-    if cfg.embed_scale:
-        h = h * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.cdtype)
+        if positions is None:
+            positions = torch.arange(h.shape[1], device=h.device)[None, :]
+        h = h + L.sinusoidal(positions, cfg.d_model).to(h.dtype)
     return h
 
 
 def unembed_matrix(params, cfg) -> torch.Tensor:
-    return params.get("unembed", params["embed"])
+    return params["unembed"] if "unembed" in params else params["embed"]
 
 
 def _logits(params, cfg, h) -> torch.Tensor:
@@ -158,16 +203,14 @@ def _logits(params, cfg, h) -> torch.Tensor:
 
 def loss_and_aux(params, cfg, batch, *, remat: bool = True,
                  loss_chunk: int = 512, aux_weight: float = 0.01):
-    """Causal-LM loss.  batch: tokens (b, s), labels (b, s) and an optional
-    mask (b, s).  Returns (loss, {"nll", "aux", "tokens"}), float32 0-d.
+    """Causal-LM loss.  batch: tokens (b, s) or embeds (b, s, d), labels
+    (b, s) and an optional mask (b, s).  Returns (loss, {"nll", "aux",
+    "tokens"}), float32 0-d.
 
     MoE blocks run their experts through the batched matmul, on every
     device: the grouped GEMM kernel has no backward (the reference's
     trainer takes the same path off the TPU)."""
-    if "tokens" not in batch:
-        raise ValueError("loss_and_aux takes token batches (embedding "
-                         "inputs are not ported yet)")
-    h = embed_inputs(params, cfg, batch["tokens"])
+    h = embed_inputs(params, cfg, batch)
     h, _, aux = forward(params, cfg, h, remat=remat, use_kernel=False)
     h = L.norm_apply(params["final_norm"], h, cfg.norm)
     nll, cnt = losses.chunked_cross_entropy(
@@ -177,10 +220,10 @@ def loss_and_aux(params, cfg, batch, *, remat: bool = True,
 
 
 def prefill(params, cfg, batch: dict, *, cache_len: int | None = None):
-    """Forward pass that fills caches.  batch: tokens (b, s).  Returns
-    (caches, last_logits (b, 1, vocab) f32, pos (b,) int64)."""
-    tokens = batch["tokens"]
-    h = embed_inputs(params, cfg, tokens)
+    """Forward pass that fills caches.  batch: tokens (b, s) or embeds
+    (b, s, d).  Returns (caches, last_logits (b, 1, vocab) f32, pos (b,)
+    int64)."""
+    h = embed_inputs(params, cfg, batch)
     b, s, _ = h.shape
     caches = init_caches(cfg, b, cache_len or s, h.device)
     h, caches, _ = forward(params, cfg, h, caches=caches)
@@ -190,10 +233,10 @@ def prefill(params, cfg, batch: dict, *, cache_len: int | None = None):
 
 
 def decode_step(params, cfg, caches, batch: dict, pos):
-    """One-token step.  batch: tokens (b, 1); pos (b,).  Returns (logits
-    (b, 1, vocab) f32, new_caches)."""
+    """One-token step.  batch: tokens (b, 1) or embeds (b, 1, d); pos (b,).
+    Returns (logits (b, 1, vocab) f32, new_caches)."""
     positions = pos[:, None]
-    h = embed_inputs(params, cfg, batch["tokens"])
+    h = embed_inputs(params, cfg, batch, positions=positions)
     h, caches, _ = forward(params, cfg, h, positions=positions,
                            caches=caches, pos=pos)
     h = L.norm_apply(params["final_norm"], h, cfg.norm)

@@ -50,11 +50,14 @@ def loss_and_grads(params, cfg, batch, *, remat: bool = True,
                    loss_chunk: int = 512):
     """``(loss, aux, grads)`` of ``M.loss_and_aux`` on one batch: the
     gradient of every param, in a tree like ``params`` and in each param's
-    dtype; ``loss`` and ``aux`` detached."""
+    dtype; ``loss`` and ``aux`` detached.  A param the loss does not use
+    (``ln2`` of a parallel block) gets a zero gradient, as the
+    reference's ``jax.grad`` gives it."""
     flat = [p.detach().requires_grad_(True) for p in leaves(params)]
     loss, aux = M.loss_and_aux(unflatten(params, flat), cfg, batch,
                                remat=remat, loss_chunk=loss_chunk)
-    grads = torch.autograd.grad(loss, flat)
+    grads = torch.autograd.grad(loss, flat, allow_unused=True,
+                                materialize_grads=True)
     return (loss.detach(), {k: v.detach() for k, v in aux.items()},
             unflatten(params, grads))
 

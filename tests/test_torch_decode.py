@@ -116,7 +116,7 @@ def test_prefill_decode_consistency(arch):
     b, s = 1, 12
     toks = torch.from_numpy(_tokens(tcfg, (b, s + 1), seed=5)).long()
     with torch.no_grad():
-        h = M.embed_inputs(tparams, tcfg, toks)
+        h = M.embed_inputs(tparams, tcfg, {"tokens": toks})
         h, _, _ = M.forward(tparams, tcfg, h)
         h = L.norm_apply(tparams["final_norm"], h, tcfg.norm)
         full = h.float() @ M.unembed_matrix(tparams, tcfg).T.float()
