@@ -170,14 +170,37 @@ NVIDIA H100 (sm_90a) and the CUDA toolkit.  Phases, each timed:
               between the sound gap and injected faults.  Last, the eight
               smoke configs at f32 on the card against the CPU (logits and
               caches);
-10. summary — a ``kernels`` JSON line, the card's name and power limit, and
-              last the ``{"ok": true, ...}`` line.
+10. obs      — observability and plan verification (``repro_torch.obs``,
+              ``repro_torch.analysis``): the card's copy-scale roof
+              (``obs.measure_roof``) against the data sheet's 3.35 TB/s;
+              the accountant fed with the timing and attention phases'
+              kernel medians and the reference's byte models, its report,
+              each kernel's roof fraction and bound at the measured roof;
+              Llama-3.2-1B ``serve_pruned`` from a cold plan cache under
+              ``obs.tracing()`` with ``REPRO_VERIFY_PLANS`` on (48 plans
+              resolved, built and verified, 0 findings, ms a plan; 48
+              ``dispatch`` events a forward; the serve.* spans; the trace
+              validated), the warm forward's host ms and a dispatch's host
+              µs with tracing off and on, a ``torch.profiler`` capture of a
+              warm forward (``serve.forward_warm`` and 48
+              ``spmm_rowsplit_cuda`` ranges,
+              each over a kernel launch); ``serve_online`` of 16 requests
+              under trace and verification (9 graphs captured, replays and
+              requests bit-equal to the eager forward, events counted, every
+              dispatch row-split on ``cuda``, its launches counted and held
+              to row-split alone, metrics validated); ``planlint --suite
+              mini`` on the card;
+              the train CLI with ``--trace-out`` / ``--metrics-out``;
+11. summary — a ``kernels`` JSON line (each row with its roof fraction),
+              the card's name and power limit, and last the ``{"ok":
+              true, ...}`` line.
 
 Exits non-zero, printing no result, when torch sees no CUDA device, when
 the package is not beside this script, or when any phase fails.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import gc
@@ -738,11 +761,13 @@ def parity_grad(matrices, eps, dev, read_counts) -> dict:
     return worst
 
 
-def timing_backward(llama_matrix, dev, card) -> dict:
+def timing_backward(llama_matrix, dev, card, calls) -> dict:
     """The backward's kernels at the training path's shapes (n = 128, f32):
     the SDDMM (dvals) and dB = Aᵀ·g by the merge kernel on the transpose
     plan, each with its plain version, the cuSPARSE call and the
-    function's bound, per matrix and per FFN layer (w1 + w3 + w2)."""
+    function's bound, per matrix and per FFN layer (w1 + w3 + w2).
+    ``calls[name]`` gets each matrix's (plan meta, kernel ms, uses) for
+    the obs phase's accountant."""
     from repro_torch.core import PlanPolicy, build_plan
     from repro_torch.core.plan import transpose_pattern
     from repro_torch.kernels import merge_spmm, ops, ref, sddmm
@@ -813,6 +838,7 @@ def timing_backward(llama_matrix, dev, card) -> dict:
                   f"{p_ms:.4f} ms, library {l_ms:.4f} ms, bound "
                   f"{bound:.6f} ms ({by}: {c['nbytes']} B, {flops} flop); "
                   f"{card}")
+            calls.setdefault(name, []).append((plan.meta, k_ms, uses))
             s = acc[name]
             s["ms"] += uses * k_ms
             s["plain_ms"] += uses * p_ms
@@ -978,7 +1004,9 @@ def tune(cfg, params, prompt, forced, dev, card, reset_counts,
     3. The main path with the DB: the served model's other 46 pruned FFN
        patterns tuned in, the DB saved and loaded with
        ``engine.load_tunedb``, ``serve_pruned`` run twice through the
-       ladder (every plan an exact hit, none built while serving, logits
+       ladder (every plan an exact hit, resolved by the first run and
+       served from the cache's alias map to the second, none built while
+       serving, logits
        bit-equal to the serving phase's run with the picked method
        forced), the eager warm forward timed beside row-split forced's;
        ``python -m repro_torch.tune --suite mini`` and ``python -m
@@ -1284,10 +1312,13 @@ def tune(cfg, params, prompt, forced, dev, card, reset_counts,
               f"methods by matrix {by}; plans built during serving "
               f"{rep.replans}; warm forward {rep.warm_s * 1e3:.2f} ms; "
               f"launches {counts} over 2 forwards; {card}")
-        if set(r for r, _ in rungs) != {"exact"} or \
-                sum(rungs.values()) != len(picks):
+        # The plan cache's alias map answers the second run's requests
+        # without resolving them again: every plan an exact hit, then none.
+        resolved = len(picks) if run == "first" else 0
+        if set(r for r, _ in rungs) - {"exact"} or \
+                sum(rungs.values()) != resolved:
             raise AssertionError(f"serving with the DB resolved {rungs}, "
-                                 f"expected {len(picks)} exact hits")
+                                 f"expected {resolved} exact hits")
         if rep.replans or counts != want:
             raise AssertionError(f"serving with the DB: {rep.replans} "
                                  f"replans, launches {counts} != {want}")
@@ -2919,7 +2950,8 @@ def timing_flash(dev, card) -> dict:
                 profile_device(lib, top=3)
             rows[(arch, b, s, dname)] = dict(
                 ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound,
-                bound_by=by, exp_ms=exp_ms, body=body,
+                bound_by=by, bytes=nbytes, flops=flops, exp_ms=exp_ms,
+                body=body,
                 sdpa_backends_ms=backends)
             del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
@@ -3390,6 +3422,473 @@ def dense_training(dev, card, reset_counts, read_counts) -> dict:
     return counts
 
 
+# The obs phase: the online run under trace (16 Poisson requests over the
+# online phase's 9 buckets) and the four serve.* categories every trace of
+# the serving path must hold.
+OBS_REQUESTS = 16
+OBS_CATS = ("plan", "cache", "dispatch", "serve")
+OBS_METRICS = ("plan_resolve_total", "plan_cache_events_total",
+               "serve_latency_us")
+
+
+def account_kernels(timings, dev, card) -> dict:
+    """The card's measured streaming roof (``obs.measure_roof``: the
+    copy-scale pass ``x * 1.5 + 0.25`` over 1 << 26 f32, the least of 5
+    CUDA-event windows) and the accountant (``obs.accountant``) fed with
+    the kernel medians the timing and attention phases measured and each
+    kernel's compulsory bytes by the reference's models: row-split and
+    merge forward through ``account_plan`` at n = 128 (one FFN layer, w1 +
+    w3 + w2), the SDDMM through ``sddmm_min_bytes``, merge's dB through
+    ``plan_bwd_min_bytes`` less the SDDMM's, the grouped GEMM and flash
+    with the bytes ``moe_bound`` / ``flash_bound`` count.  Device times
+    only: a host time of these host-bound paths would put a kernel below
+    the roof for a reason that is not the kernel's.  Returns, per kernel,
+    its roof fraction and its bound at the measured roof beside the data
+    sheet's."""
+    from repro_torch import obs
+    from repro_torch.obs import roofline as R
+    roof = obs.measure_roof(force=True, device=dev)
+    print(f"roof: {roof.gb_per_s:.2f} GB/s ({roof.backend}, {roof.source}: "
+          f"copy-scale over {roof.elements} f32, the least of 5 runs), "
+          f"{roof.bytes_per_s / HBM_BYTES_PER_S:.4f} of the data sheet's "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; {card}")
+    acc = obs.accountant
+    acc.reset()
+    n = SERVE_BATCH * SERVE_PROMPT
+    keys = {}
+    for kname in ("rowsplit_spmm", "merge_spmm"):
+        for meta, ms, uses in timings[kname]:
+            acc.account_plan(meta, n, wall_us=uses * ms * 1e3, impl="cuda",
+                             calls=uses)
+        keys[kname] = ("spmm", KERNELS[kname]["method"], "cuda", "float32")
+    for name, key in (("sddmm", ("sddmm", "sddmm", "cuda", "float32")),
+                      ("merge_dB", ("spmm_dB", "merge", "cuda",
+                                    "float32"))):
+        for meta, ms, uses in timings[name]:
+            m, k = meta.shape
+            sd = R.sddmm_min_bytes(meta.nnz_pad, m, k, n)
+            nbytes = sd if name == "sddmm" else \
+                R.plan_bwd_min_bytes(meta, n) - sd
+            acc.record(key, wall_us=uses * ms * 1e3,
+                       min_bytes=uses * nbytes,
+                       flops=uses * R.spmm_flops(meta.nnz_pad, n),
+                       calls=uses)
+        keys[name] = key
+    for name, key, calls in (
+            ("moe_gemm", ("moe", "grouped_gemm", "cuda", "bfloat16"), 3),
+            ("flash_attention", ("attention", "flash", "cuda", "bfloat16"),
+             1)):
+        t = timings[name]
+        acc.record(key, wall_us=t["ms"] * 1e3, min_bytes=t["bytes"],
+                   flops=t["flops"], calls=calls)
+        keys[name] = key
+    print(obs.report(roof=roof))
+    rows = {(r["kind"], r["method"], r["impl"], r["dtype"]): r
+            for r in acc.rows(roof)}
+    out = {}
+    for name, key in keys.items():
+        r = rows[key]
+        out[name] = dict(
+            roof_fraction=r["roof_fraction"],
+            roof_bound_ms=r["min_bytes"] / roof.bytes_per_s * 1e3,
+            datasheet_bound_ms=r["min_bytes"] / HBM_BYTES_PER_S * 1e3,
+            ms=r["wall_us"] / 1e3, min_bytes=r["min_bytes"])
+        print(f"roofline {name:15s}: {out[name]['ms']:.4f} ms for "
+              f"{r['min_bytes']:.0f} compulsory bytes ({r['calls']} calls); "
+              f"bound at the measured roof {out[name]['roof_bound_ms']:.6f} "
+              f"ms, at the data sheet's {out[name]['datasheet_bound_ms']:.6f}"
+              f" ms; roof fraction {r['roof_fraction']:.4f}; {card}")
+    return dict(roof_gb_s=roof.gb_per_s,
+                roof_of_datasheet=roof.bytes_per_s / HBM_BYTES_PER_S,
+                kernels=out)
+
+
+def trace_counts(tracer) -> dict:
+    """Events of a trace ring by (category, name)."""
+    out = {}
+    for e in tracer.events():
+        key = f"{e['cat']}/{e['name']}"
+        out[key] = out.get(key, 0) + 1
+    return dict(sorted(out.items()))
+
+
+def check_trace(tracer, path, cats) -> None:
+    """Export the ring and hold it to ``obs.validate`` (required
+    categories); raises on any problem."""
+    from repro_torch.obs import validate
+    tracer.export(str(path))
+    problems = validate.validate_trace(str(path), require_cats=cats)
+    if problems:
+        raise AssertionError(f"trace {path}: {problems}")
+
+
+def traced_serving(cfg, params, prompt, out_dir, card, reset_counts,
+                   read_counts) -> dict:
+    """``serve_pruned`` on the serving phase's full-width model (row-split
+    by the §5.4 rule) from a cold plan cache inside ``obs.tracing()``, with
+    ``REPRO_VERIFY_PLANS`` on: every plan resolved, built and verified by
+    the plan linter under trace (0 findings, ms a plan).  The trace is
+    exported and validated; 48 ``dispatch`` events a forward; the serve.*
+    spans' durations.  Then the warm forward's host ms with tracing off
+    and on (off, on, on, off, as ``host_ms`` times it), the host µs of one
+    dispatch off and on (15 windows each, in turns), and a
+    ``torch.profiler`` capture of one warm forward with tracing on: the
+    ``serve.forward_warm`` range and 48 ``spmm_rowsplit_cuda`` ranges,
+    each holding its kernel's launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import engine, obs
+    from repro_torch.analysis import planlint, set_verify_plans
+    from repro_torch.core import execute_plan
+    from repro_torch.launch import serve
+    plans = 3 * cfg.num_layers
+    engine.clear_cache()
+    spent = []
+    check = planlint.check_plan
+
+    def timed_check(plan, a=None):
+        t0 = time.perf_counter()
+        check(plan, a)
+        spent.append(time.perf_counter() - t0)
+
+    planlint.check_plan = timed_check
+    prev = set_verify_plans(True)
+    try:
+        reset_counts()
+        with obs.tracing() as tr:
+            rep = serve.serve_pruned(cfg, params, prompt, KEEP)
+        counts = read_counts()
+    finally:
+        set_verify_plans(prev)
+        planlint.check_plan = check
+    check_trace(tr, out_dir / "serve_trace.json", OBS_CATS)
+    by = trace_counts(tr)
+    dispatch = tr.events(name="dispatch")
+    spans = {e["name"]: e["dur"] / 1e3 for e in tr.events(cat="serve")}
+    print(f"serving under trace: {len(tr)} events, {tr.dropped} dropped, "
+          f"by category/name {by}; serve.* spans (ms) "
+          + ", ".join(f"{k} {v:.3f}" for k, v in spans.items())
+          + f"; launches {counts}; warm forward {rep.warm_s * 1e3:.3f} ms "
+          f"host; {card}")
+    if len(dispatch) != 2 * plans or any(
+            (e["args"]["method"], e["args"]["impl"]) != ("rowsplit", "cuda")
+            for e in dispatch):
+        raise AssertionError(f"serving under trace: {len(dispatch)} "
+                             f"dispatch events, expected {plans} a forward "
+                             "of row-split on cuda")
+    for name in ("plan/plan.resolve", "cache/cache.miss", "plan/plan.build"):
+        if by.get(name) != plans:
+            raise AssertionError(f"serving under trace: {by.get(name)} "
+                                 f"{name}, expected {plans}")
+    if set(spans) != {"serve.plan", "serve.forward_cold",
+                      "serve.forward_warm"} or rep.replans:
+        raise AssertionError(f"serving under trace: spans {sorted(spans)}, "
+                             f"{rep.replans} plans built while serving")
+    if counts["rowsplit_spmm"] != 2 * plans or \
+            sum(counts.values()) != counts["rowsplit_spmm"]:
+        raise AssertionError(f"serving under trace launched {counts}")
+    if len(spent) != plans:
+        raise AssertionError(f"the verify hook ran {len(spent)} times for "
+                             f"{plans} plans built")
+    verify_ms = [x * 1e3 for x in spent]
+    print(f"plan verification (REPRO_VERIFY_PLANS on, at build): {plans} "
+          f"plans, 0 findings, {statistics.median(verify_ms):.2f} ms a plan "
+          f"(median; least {min(verify_ms):.2f}, most {max(verify_ms):.2f}, "
+          f"all {sum(verify_ms):.1f} ms); {card}")
+
+    blocks = serve.prune_ffn_blocks(params, cfg, KEEP)
+    fwd = serve.make_pruned_forward(cfg)
+
+    def forward():
+        with torch.no_grad():
+            fwd(params, blocks, prompt)
+
+    host = {"off": [], "on": []}
+    for mode in ("off", "on", "on", "off"):
+        if mode == "on":
+            with obs.tracing():
+                host[mode].append(host_ms(forward, reps=9))
+        else:
+            host[mode].append(host_ms(forward, reps=9))
+    print(f"warm forward host ms, tracing off {host['off']} and on "
+          f"{host['on']} (off, on, on, off; each the median of 9 "
+          f"synchronised calls); {card}")
+    # The host cost of a dispatch, apart from the forward's spread: 48
+    # back-to-back execute_plan calls of layer 0's w1 plan in one window,
+    # not synchronised inside it (48 launches of ~0.16 ms stay far below
+    # the launch queue's depth, so the window is the host's dispatch
+    # time), tracing off and on in turns, 15 windows each.
+    sl = blocks[0]["mlp"]["w1"]
+    b = torch.randn(sl.weight.k, SERVE_BATCH * SERVE_PROMPT,
+                    device=prompt.device)
+
+    def dispatch_us():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(plans):
+            execute_plan(sl.plan, sl.weight.vals, b)
+        us = (time.perf_counter() - t0) / plans * 1e6
+        torch.cuda.synchronize()
+        return us
+
+    calls = {"off": [], "on": []}
+    with torch.no_grad():
+        dispatch_us()
+        for _ in range(15):
+            calls["off"].append(dispatch_us())
+            with obs.tracing():
+                calls["on"].append(dispatch_us())
+    off_us, on_us = (statistics.median(calls[k]) for k in ("off", "on"))
+    print(f"host us a dispatch (execute_plan, 15 windows of {plans} calls "
+          f"each way, in turns): tracing off {off_us:.2f} (quartiles "
+          f"{statistics.quantiles(calls['off'], n=4)[0]:.2f}-"
+          f"{statistics.quantiles(calls['off'], n=4)[2]:.2f}), on "
+          f"{on_us:.2f} ({statistics.quantiles(calls['on'], n=4)[0]:.2f}-"
+          f"{statistics.quantiles(calls['on'], n=4)[2]:.2f}): tracing adds "
+          f"{on_us - off_us:.2f} us a dispatch, "
+          f"{(on_us - off_us) * plans / 1e3:.3f} ms a forward of {plans}; "
+          f"{card}")
+
+    with obs.tracing():
+        forward()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with obs.span("serve.forward_warm", cat="serve"):
+                forward()
+                torch.cuda.synchronize()
+    evs = prof.events()
+    cpu = [e for e in evs if e.device_type == DeviceType.CPU]
+    ranges = [e for e in cpu if e.name == "spmm_rowsplit_cuda"]
+    warm = [e for e in cpu if e.name == "serve.forward_warm"]
+    launches = [e for e in cpu if "LaunchKernel" in e.name]
+    kernels = [e for e in evs if e.device_type == DeviceType.CUDA
+               and "rowsplit_kernel" in e.name]
+
+    def holds_launch(r):
+        return any(r.time_range.start <= x.time_range.start
+                   and x.time_range.end <= r.time_range.end
+                   for x in launches)
+
+    under = sum(holds_launch(r) for r in ranges)
+    print(f"profiler capture of one warm forward under trace: "
+          f"serve.forward_warm ranges {len(warm)}, spmm_rowsplit_cuda ranges "
+          f"{len(ranges)}, {under} of them holding a kernel launch; "
+          f"row-split kernels on the device {len(kernels)}; launch events "
+          f"{len(launches)}")
+    if len(warm) != 1 or len(ranges) != plans or under != plans or \
+            len(kernels) < plans:
+        names = sorted({e.name for e in cpu})[:40]
+        raise AssertionError(f"profiler capture: expected 1 "
+                             f"serve.forward_warm and {plans} "
+                             f"spmm_rowsplit_cuda ranges each over a kernel "
+                             f"launch (CPU event names: {names})")
+    return dict(launches=counts, host_off_ms=host["off"],
+                host_on_ms=host["on"], dispatch_off_us=off_us,
+                dispatch_on_us=on_us, spans_ms=spans, events=by,
+                verify_ms_median=statistics.median(verify_ms))
+
+
+def traced_online(cfg, params, out_dir, dev, card, reset_counts,
+                  read_counts) -> dict:
+    """``serve_online`` on the same model, 16 Poisson requests over the
+    online phase's 9 buckets, with tracing on throughout and
+    ``REPRO_VERIFY_PLANS`` on through the server's warmup: every plan it
+    takes from the cache is verified there, before any capture (no
+    ``PlanCache.get`` runs inside one); every bucket captures a CUDA
+    graph whose replay is bit-equal to the eager forward, and every
+    request to the eager forward of its packed bucket matrix.  The trace
+    holds one ``serve.enqueue`` a request, one ``serve.execute`` and one
+    ``serve.batch`` a batch run, no ``serve.shed`` unless the run shed,
+    and ``dispatch`` events only from the warm calls and captures (a
+    replay passes no Python), each of row-split on ``cuda``; the metrics
+    dump passes the validator.  Launches, counted as the online phase
+    counts them: the wrappers see each bucket's warm call and capture (48
+    each, no other kernel), and the path's launches are the warm calls'
+    plus 48 for each replay."""
+    from repro_torch import obs
+    from repro_torch.analysis import planlint, set_verify_plans
+    from repro_torch.engine import GraphProgram
+    from repro_torch.launch import serve
+    from repro_torch.obs import validate
+    from repro_torch.serving import Server
+    verified = []
+    check, warmup = planlint.check_plan, Server.warmup
+
+    def counted_check(plan, a=None):
+        verified.append(plan.meta.method)
+        check(plan, a)
+
+    def verified_warmup(self):
+        # REPRO_VERIFY_PLANS on through the server's warmup: its
+        # ensure_spmm_plans serves every plan from the cache (verified on
+        # the hit), then the buckets capture.  (The prune before it would
+        # verify the same 48 plans again at 0.2-0.3 s each.)
+        prev = set_verify_plans(True)
+        try:
+            return warmup(self)
+        finally:
+            set_verify_plans(prev)
+
+    planlint.check_plan, Server.warmup = counted_check, verified_warmup
+    try:
+        reset_counts()
+        with obs.tracing() as tr:
+            rep = serve.serve_online(cfg, params, KEEP, batch=SERVE_BATCH,
+                                     prompt_len=SERVE_PROMPT,
+                                     requests=OBS_REQUESTS, seed=SEED + 1,
+                                     keep_served=True)
+        counts = read_counts()
+    finally:
+        planlint.check_plan, Server.warmup = check, warmup
+    check_trace(tr, out_dir / "online_trace.json", OBS_CATS)
+    metrics = obs.dump_metrics(str(out_dir / "online_metrics.json"))
+    problems = validate.validate_metrics(metrics, require_names=OBS_METRICS)
+    if problems:
+        raise AssertionError(f"metrics {metrics}: {problems}")
+    srv, load = rep.server, rep.load
+    shapes = srv.ladder.shapes()
+    progs = {sh: srv.program(*sh) for sh in shapes}
+    by = trace_counts(tr)
+    batches = {}
+    for tokens, fut in load.served:
+        batches.setdefault(id(fut.packed), []).append((tokens, fut))
+    plans = 3 * cfg.num_layers
+    replays = sum(prog.replays for prog in progs.values())
+    launches = plans * (len(shapes) + replays)
+    print(f"online under trace: {load.ok}/{load.n} ok, {load.shed} shed, "
+          f"{load.error} error in {len(batches)} batches; events by "
+          f"category/name {by}; plans verified at warmup {len(verified)}; "
+          f"recompiles {rep.recompiles}, plans built {rep.replans}; wrapper "
+          f"launches {counts} (warm calls and captures), replays {replays}, "
+          f"launches on the path {launches}; {card}")
+    if len(progs) != 9 or not all(isinstance(p, GraphProgram)
+                                  for p in progs.values()):
+        raise AssertionError("online under trace: expected 9 CUDA graphs")
+    if (load.ok, load.error) != (load.n - load.shed, 0) or \
+            rep.recompiles or rep.replans:
+        raise AssertionError("online under trace: a request failed, or the "
+                             "run built a program or a plan after warmup")
+    want = {"serve/serve.enqueue": load.n - load.shed,
+            "serve/serve.execute": len(batches),
+            "serve/serve.batch": len(batches),
+            "serve/serve.warmup": 1,
+            "dispatch/dispatch": 2 * plans * len(shapes)}
+    got = {k: by.get(k, 0) for k in want}
+    if got != want or by.get("serve/serve.shed", 0) != load.shed:
+        raise AssertionError(f"online under trace: events {got}, expected "
+                             f"{want} and {load.shed} serve.shed")
+    routes = collections.Counter(
+        (e["args"]["method"], e["args"]["impl"])
+        for e in tr.events(name="dispatch"))
+    if set(routes) != {("rowsplit", "cuda")}:
+        raise AssertionError(f"online under trace: dispatches by (method, "
+                             f"impl) {dict(routes)}, expected row-split on "
+                             "cuda only")
+    if counts["rowsplit_spmm"] != 2 * plans * len(shapes) or \
+            sum(counts.values()) != counts["rowsplit_spmm"] or not replays:
+        raise AssertionError(f"online under trace: the wrappers counted "
+                             f"{counts} with {replays} replays, expected "
+                             f"row-split only, a warm call and a capture a "
+                             f"bucket (2 x {plans} x {len(shapes)})")
+    if len(verified) != plans:
+        raise AssertionError(f"online under trace: {len(verified)} plans "
+                             f"verified at warmup, expected {plans}")
+    p, blocks = srv.state
+    base = serve.make_pruned_forward(cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    with torch.inference_mode():
+        for (bb, lb), prog in progs.items():
+            tok = torch.randint(0, cfg.vocab_size, (bb, lb), generator=gen,
+                                device=dev)
+            eager = base(p, blocks, tok)
+            if not torch.equal(prog(tok).clone(), eager):
+                raise AssertionError(f"online under trace {bb}x{lb}: the "
+                                     "replay differs from the eager forward")
+        for group in batches.values():
+            packed = group[0][1].packed
+            eager = base(p, blocks, torch.from_numpy(packed).to(dev))
+            for tokens, fut in group:
+                if not torch.equal(fut.result(),
+                                   eager[fut.row, :len(tokens)]):
+                    raise AssertionError("online under trace: a request "
+                                         "differs from the eager forward "
+                                         "of its bucket matrix")
+    torch.cuda.synchronize()
+    print(f"online under trace: {len(progs)} graphs captured with tracing "
+          f"on, each replay bit-equal to the eager forward; all "
+          f"{len(load.served)} requests bit-equal to the eager forwards of "
+          f"their bucket matrices; trace and metrics validated")
+    srv.programs.clear()
+    return dict(requests=load.n, ok=load.ok, shed=load.shed,
+                batches=len(batches), verified=len(verified), events=by,
+                launches=launches, wrapper_launches=counts["rowsplit_spmm"],
+                replays=replays)
+
+
+def observability(timings, dev, card, reset_counts, read_counts) -> dict:
+    """The obs phase (``repro_torch.obs`` and ``repro_torch.analysis``):
+    the roof and the accountant (``account_kernels``), serving and online
+    serving under trace with plan verification on (``traced_serving``,
+    ``traced_online``), ``python -m repro_torch.analysis planlint --suite
+    mini`` on the card, and the train CLI with ``--trace-out`` /
+    ``--metrics-out`` at the smoke config (2 steps), both validated.
+    Any validator problem, planlint finding, missing range or broken
+    replay raises."""
+    from repro_torch import obs
+    from repro_torch.analysis import cli as lint_cli
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _cuda
+    from repro_torch.launch import train
+    from repro_torch.models import model as M
+    from repro_torch.obs import validate
+    out_dir = _cuda.BUILD_DIR / "obs"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    roofline = account_kernels(timings, dev, card)
+    print(f"[obs] roof and accountant {time.perf_counter() - t0:.2f} s")
+    cfg = get_config("llama3.2-1b")
+    params = M.init_params(cfg, SEED, dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    prompt = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                           generator=g, device=dev)
+    t0 = time.perf_counter()
+    serving = traced_serving(cfg, params, prompt, out_dir, card,
+                             reset_counts, read_counts)
+    print(f"[obs] serving under trace {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    online = traced_online(cfg, params, out_dir, dev, card, reset_counts,
+                           read_counts)
+    print(f"[obs] online under trace {time.perf_counter() - t0:.2f} s")
+    del params, prompt
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rc = lint_cli.main(["planlint", "--suite", "mini", "--json",
+                        str(out_dir / "planlint.json")])
+    if rc:
+        raise AssertionError(f"planlint --suite mini on the card: exit {rc}")
+    trace = out_dir / "train_trace.json"
+    metrics = out_dir / "train_metrics.json"
+    with obs.tracing() as tr:
+        rc = train.main(["--smoke", "--steps", "2", "--global-batch", "2",
+                         "--seq-len", "16", "--trace-out", str(trace),
+                         "--metrics-out", str(metrics)])
+    problems = validate.validate_trace(str(trace)) + \
+        validate.validate_metrics(str(metrics),
+                                  require_names=("train_step_latency_us",))
+    steps = tr.events(name="train.step")
+    if rc or problems or len(steps) != 2:
+        raise AssertionError(f"train CLI under trace: exit {rc}, "
+                             f"{len(steps)} train.step spans, {problems}")
+    print(f"train CLI --trace-out/--metrics-out, 2 smoke steps on the card: "
+          f"train.step spans "
+          + ", ".join(f"{e['dur'] / 1e3:.2f}" for e in steps)
+          + f" ms; trace and metrics validated; planlint and the CLI "
+          f"{time.perf_counter() - t0:.2f} s")
+    return dict(roofline=roofline, serving=serving, online=online)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -3618,6 +4117,8 @@ def main() -> int:
     # What a plan reads beyond the CSR's index arrays is printed apart.
     per_layer = {name: dict(ms=0.0, plain_ms=0.0, library_ms=0.0)
                  for name, spec in KERNELS.items() if spec["method"]}
+    # Each timed matrix's (plan meta, kernel ms, uses), for the obs phase.
+    timed_calls = {name: [] for name in per_layer}
     layer_bytes = layer_flops = 0
     n = SERVE_BATCH * SERVE_PROMPT
     for mat_name, (m, k) in LLAMA_FFN.items():
@@ -3682,6 +4183,7 @@ def main() -> int:
                   f"{bound:.6f} ms; plan arrays read {plan_bytes} B, "
                   f"{plan_bytes - index_bytes} B beyond the CSR's index "
                   f"arrays; {card}")
+            timed_calls[kname].append((plan.meta, k_ms, uses))
             acc = per_layer[kname]
             acc["ms"] += uses * k_ms
             acc["plain_ms"] += uses * p_ms
@@ -3697,7 +4199,7 @@ def main() -> int:
               f"{acc['library_ms']:.4f} ms, bound {acc['bound_ms']:.6f} ms "
               f"({acc['bound_by']}: {layer_bytes} B, {layer_flops} flop); "
               f"{card}")
-    backward = timing_backward(llama_matrix, dev, card)
+    backward = timing_backward(llama_matrix, dev, card, timed_calls)
     power_law = timing_power_law(dev, card)
     per_layer["sddmm"] = backward["sddmm"]
     per_layer["moe_gemm"] = timing_moe(dev, card)
@@ -3799,6 +4301,15 @@ def main() -> int:
         worst[name] = max(worst[name], err)
     done("archs", t0)
 
+    # -------------------------------------------------------------- obs --
+    t0 = phase("obs")
+    torch.cuda.empty_cache()
+    observed = observability(
+        dict(timed_calls, moe_gemm=per_layer["moe_gemm"],
+             flash_attention=attn), dev, card, reset_counts, read_counts)
+    roof_rows = observed["roofline"]["kernels"]
+    done("obs", t0)
+
     # ---------------------------------------------------------- summary --
     rows = []
     for kname, kspec in KERNELS.items():
@@ -3812,7 +4323,10 @@ def main() -> int:
                     "attention": attn["launches"]
                     if kname == "flash_attention" else 0,
                     "decode": dec["launches"] if kname == "moe_gemm" else 0,
-                    "archs": arch["launches"].get(kname, 0)}
+                    "archs": arch["launches"].get(kname, 0),
+                    "obs": observed["serving"]["launches"][kname]
+                    + (observed["online"]["launches"]
+                       if kname == "rowsplit_spmm" else 0)}
         row = {
             "name": kname, "route": "cuda", "source": kspec["source"],
             "replaces": kspec["replaces"],
@@ -3820,9 +4334,14 @@ def main() -> int:
             **{f"launches_{k}": v for k, v in launches.items()},
             "max_abs_err": worst[kname], "ms": acc["ms"],
             "plain_ms": acc["plain_ms"], "bound_ms": acc["bound_ms"],
-            "bound_by": acc["bound_by"], "library_ms": acc["library_ms"]}
+            "bound_by": acc["bound_by"], "library_ms": acc["library_ms"],
+            "roof_fraction": roof_rows[kname]["roof_fraction"],
+            "roof_bound_ms": roof_rows[kname]["roof_bound_ms"]}
         if kname == "merge_spmm":
-            row["backward_dB"] = backward["merge_dB"]
+            row["backward_dB"] = dict(
+                backward["merge_dB"],
+                roof_fraction=roof_rows["merge_dB"]["roof_fraction"],
+                roof_bound_ms=roof_rows["merge_dB"]["roof_bound_ms"])
             row["power_law"] = power_law
         if kname == "rowsplit_spmm":
             row["online"] = served_online
@@ -3869,6 +4388,13 @@ def main() -> int:
           "the archs phase's main paths (RecurrentGemma-2B's two serving "
           "runs, 156 launches each, and the Mixtral-8x22B cut's "
           f"generate, {MIXTRAL_GEN + 1} forwards); "
+          "the obs phase's traced serve_pruned run (2 forwards by "
+          "row-split, 96) and traced online run (counted as the online "
+          "run); roof_fraction: the compulsory bytes of ms "
+          "(the reference's roofline models) over ms, as a fraction of the "
+          "card's measured copy-scale roof, roof_bound_ms those bytes at "
+          "that roof (bound_ms takes the data sheet's 3.35 TB/s and the "
+          "operations); "
           "max_abs_err: worst parity case, forward, gradient, the online "
           "buckets' widths, the MoE layers (OLMoE's and the Mixtral "
           "cut's), RecurrentGemma-2B's served plans and the attention "

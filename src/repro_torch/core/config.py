@@ -23,6 +23,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.obs import metrics as _metrics
+from repro_torch.obs import trace as _trace
 
 from .epilogue import Epilogue
 from .heuristic import Heuristic
@@ -139,6 +140,7 @@ class PlanPolicy:
         # ladder; "analytic" covers both the no-TuneDB heuristic and a
         # caller's Heuristic.
         rung = "explicit" if method != "auto" else "analytic"
+        fallback = False
         if method == "auto" and tunedb is not None:
             picked, db_rung, rec = tunedb.pick(
                 a, registered=registry.method_names())
@@ -173,8 +175,14 @@ class PlanPolicy:
             spec = registry.get_method(method)
             t, tl, l_pad, extra = spec.resolve_params(
                 a, t=self.t, tl=self.tl, l_pad=self.l_pad)
-            rung = "analytic"
+            rung, fallback = "analytic", True
         _resolve_total.labels(rung=rung, method=method).inc()
+        if _trace._enabled:
+            m_, k_ = a.shape
+            _trace.event("plan.resolve", cat="plan", rung=rung,
+                         method=method, m=int(m_), k=int(k_),
+                         nnz_pad=int(a.nnz_pad), t=t, tl=tl,
+                         l_pad=l_pad, fallback=fallback)
         return ResolvedPlan(method=method, t=t, tl=tl, l_pad=l_pad,
                             extra=extra)
 

@@ -28,6 +28,8 @@ import weakref
 import numpy as np
 import torch
 
+from repro_torch.analysis import _flags as _verify_flags
+
 from .csr import CSR
 
 
@@ -109,7 +111,9 @@ def build_plan(a: CSR, policy=None, *, _resolved=None) -> SpmmPlan:
     method's ``build_structure`` hook, on ``a``'s device.
     ``policy.with_transpose`` also builds the CSC-view merge plan for the
     ``dB`` backward pass.  ``_resolved``: a ResolvedPlan the caller (the
-    engine cache) already computed for this request.
+    engine cache) already computed for this request.  With
+    ``REPRO_VERIFY_PLANS=1`` (``analysis.set_verify_plans``) the plan is
+    verified by ``analysis.planlint`` before it is returned.
     """
     from repro_torch.kernels import merge_spmm, registry
 
@@ -140,7 +144,14 @@ def build_plan(a: CSR, policy=None, *, _resolved=None) -> SpmmPlan:
         bwd = dict(merge_spmm.plan_merge_structure(a_t, t=r.t))
         # Backward slots index the *original* vals.
         bwd["slot_nz"] = _compose_slots(bwd["slot_nz"], perm, nnz_pad)
-    return SpmmPlan(fwd=fwd, bwd=bwd, meta=meta)
+    plan = SpmmPlan(fwd=fwd, bwd=bwd, meta=meta)
+    if _verify_flags.verify_plans:
+        # Opt-in debug hook (REPRO_VERIFY_PLANS=1): full host-side
+        # structural verification of the freshly built plan.  One module
+        # attribute read when off.
+        from repro_torch.analysis.planlint import check_plan
+        check_plan(plan, a)
+    return plan
 
 
 _fingerprint_memo: dict = {}

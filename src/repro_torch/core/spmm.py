@@ -20,6 +20,12 @@ merge plan, and ``dvals`` the SDDMM kernel over the pattern
 gradients need a plan with the transpose (``PlanPolicy(
 with_transpose=True)``, the default); a forward-only plan stays
 differentiable through ordinary autograd on the plain version only.
+
+While tracing is on (``repro_torch.obs``), every ``execute_plan`` emits a
+``dispatch`` event and counts ``plan_execute_total{plan,impl}``, and,
+inside a ``torch.profiler`` capture, the kernel call runs in a
+``record_function`` range ``spmm_<method>_<impl>``; while it is off, none
+of it runs.
 """
 from __future__ import annotations
 
@@ -27,10 +33,57 @@ import dataclasses
 
 import torch
 
+from repro_torch.obs import registry as _metrics
+from repro_torch.obs import trace as _trace
+
 from .config import ExecutionConfig, PlanPolicy, torch_dtype
 from .csr import CSR
 from .epilogue import Epilogue, activation_grad, apply_epilogue
-from .plan import SpmmPlan
+from .plan import PlanMeta, SpmmPlan
+
+# Per-plan execute counts.  Gated on the tracing flag at the call site:
+# execute_plan is the engine's hottest eager entry point and the
+# observability contract is zero-cost-when-disabled.
+_plan_execute = _metrics.counter(
+    "plan_execute_total", "execute_plan dispatches by plan and impl",
+    labels=("plan", "impl"))
+
+
+# (method, shape, nnz_pad, impl) -> its plan_execute_total child, bound
+# once: formatting the label and looking the child up on every traced
+# dispatch cost more than the increment.  Children outlive a registry reset.
+_plan_execute_children: dict = {}
+
+
+def _plan_label(meta: PlanMeta) -> str:
+    m, k = meta.shape
+    return f"{meta.method}:{m}x{k}:nnz{meta.nnz_pad}"
+
+
+def _execute_counter(meta: PlanMeta, impl: str):
+    key = (meta.method, meta.shape, meta.nnz_pad, impl)
+    child = _plan_execute_children.get(key)
+    if child is None:
+        child = _plan_execute_children[key] = _plan_execute.labels(
+            plan=_plan_label(meta), impl=impl)
+    return child
+
+
+def _record_dispatch(meta: PlanMeta, b, exec: ExecutionConfig) -> None:
+    # Callers gate on _trace._enabled.  Every arg is a Python value of the
+    # plan's metadata or of shapes: no device read (CUDA graph capture).
+    _execute_counter(meta, exec.impl).inc()
+    ep = exec.epilogue
+    _trace.event(
+        "dispatch", cat="dispatch", method=meta.method, impl=exec.impl,
+        m=int(meta.shape[0]), k=int(meta.shape[1]),
+        nnz_pad=int(meta.nnz_pad), n=int(b.shape[-1]),
+        batch=list(b.shape[:-2]), acc_dtype=exec.acc_dtype,
+        out_dtype=exec.out_dtype,
+        epilogue=(dict(bias=ep.bias, residual=ep.residual,
+                       activation=ep.activation,
+                       scale=ep.scale is not None)
+                  if ep is not None else None))
 
 
 def _registry():
@@ -110,10 +163,17 @@ def _needs_grad(*xs) -> bool:
 
 
 def _forward(meta, fwd, vals, b, exec: ExecutionConfig, bias, residual):
-    return _registry().get_method(meta.method).execute(
-        meta, fwd, vals, b, impl=exec.impl, epilogue=exec.epilogue,
-        bias=bias, residual=residual, acc_dtype=torch_dtype(exec.acc_dtype),
-        out_dtype=torch_dtype(exec.out_dtype))
+    execute = _registry().get_method(meta.method).execute
+    kw = dict(impl=exec.impl, epilogue=exec.epilogue, bias=bias,
+              residual=residual, acc_dtype=torch_dtype(exec.acc_dtype),
+              out_dtype=torch_dtype(exec.out_dtype))
+    if _trace._enabled and _trace.profiling():
+        # Label the kernel's launches in the running torch.profiler
+        # capture; the dispatch event was already emitted by the caller.
+        with torch.profiler.record_function(
+                f"spmm_{meta.method}_{exec.impl}"):
+            return execute(meta, fwd, vals, b, **kw)
+    return execute(meta, fwd, vals, b, **kw)
 
 
 class _ExecuteFn(torch.autograd.Function):
@@ -239,6 +299,8 @@ def execute_plan(plan: SpmmPlan, vals: torch.Tensor, b: torch.Tensor,
             "torch.no_grad(), or use ExecutionConfig(impl='torch').")
     exec = _resolve_exec("execute_plan", plan.meta.m, vals, b, exec, bias,
                          residual)
+    if _trace._enabled:
+        _record_dispatch(plan.meta, b, exec)
     if grad and plan.bwd is not None:
         return _ExecuteFn.apply(plan, exec, vals, b, bias, residual)
     # No gradient asked for, or a forward-only plan on the plain version
@@ -317,6 +379,10 @@ def _spmm_inline(a: CSR, b, policy: PlanPolicy, exec, bias, residual):
     exec = _resolve_exec("spmm", a.m, a.vals, b,
                          exec if exec is not None else ExecutionConfig(),
                          bias, residual)
+    if _trace._enabled:
+        _trace.event("dispatch", cat="dispatch", method=r.method,
+                     impl=exec.impl, inline=True, n=int(b.shape[-1]),
+                     acc_dtype=exec.acc_dtype, out_dtype=exec.out_dtype)
     out = spec.inline(a, b, t=r.t, tl=r.tl, l_pad=r.l_pad, extra=r.extra,
                       impl=exec.impl)
     ep = exec.epilogue

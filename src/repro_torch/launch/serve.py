@@ -28,9 +28,11 @@ the CPU.  ``--serve`` serves a Poisson stream of ragged requests through
 ``repro_torch.serving.Server``: one program a ``(batch, length)`` bucket,
 a CUDA graph on the card, all built at warmup.  ``--tunedb`` loads a TuneDB
 (``python -m repro_torch.tune``) before the pruned-FFN plans are built, so
-"auto" plans resolve their method from its measurements.  Device meshes
-and trace export are later slices of the port; the CLI rejects their
-flags.
+"auto" plans resolve their method from its measurements.
+``--trace-out PATH`` turns tracing on (``repro_torch.obs``) and writes the
+run's Chrome trace there; ``--metrics-out PATH`` dumps the metrics
+registry (``python -m repro_torch.obs.validate`` checks both).  Device
+meshes are a later slice of the port; the CLI rejects ``--mesh``.
 """
 from __future__ import annotations
 
@@ -53,13 +55,23 @@ from repro_torch.runtime import steps as R
 
 _PRUNABLE_BTYPES = ("attn", "rglru")   # blocks that own a dense "mlp"
 
+# Per-phase serving latency: "plan" (prune + plan build), "cold" (first
+# forward), "warm" (steady state), "generate" (a whole greedy decode).
+_serve_latency = obs.registry.histogram(
+    "serve_latency_us", "serve.py phase latency", labels=("phase",))
+_serve_replans = obs.registry.counter(
+    "serve_replans_total",
+    "plans built inside the serving forward (must stay 0)")
+
 
 def _check_replans(before, after) -> int:
     """Count plan-cache misses between two ``cache_stats()`` snapshots and
     fail loudly if the serving forward built any (a real check, not an
-    ``assert``, which ``python -O`` strips)."""
+    ``assert``, which ``python -O`` strips).  The count lands on
+    ``serve_replans_total`` either way."""
     replans = after.misses - before.misses
     if replans:
+        _serve_replans.inc(replans)
         raise RuntimeError(
             f"serving replanned: {replans} plan(s) built during the "
             f"forward (cache misses {before.misses} -> {after.misses}). "
@@ -175,9 +187,11 @@ def serve_pruned(cfg, params, prompt, keep: float, *, microbatch: int = 0,
     device = prompt.device
     _sync(device)
     t0 = time.perf_counter()
-    blocks = prune_ffn_blocks(params, cfg, keep, policy=policy)
-    _sync(device)
+    with obs.span("serve.plan", cat="serve", keep=keep):
+        blocks = prune_ffn_blocks(params, cfg, keep, policy=policy)
+        _sync(device)
     t_plan = time.perf_counter() - t0
+    _serve_latency.labels(phase="plan").observe(t_plan * 1e6)
     stats = cache_stats()
     methods = {k: v.method for k, v in blocks[0]["mlp"].items()}
     print(f"[serve] pruned {len(blocks)} MLPs (keep={keep:.0%}) "
@@ -188,13 +202,17 @@ def serve_pruned(cfg, params, prompt, keep: float, *, microbatch: int = 0,
         fwd = R.microbatched(fwd, microbatch, argnums=(2,))
     with torch.no_grad():
         t1 = time.perf_counter()
-        fwd(params, blocks, prompt)
-        _sync(device)
+        with obs.span("serve.forward_cold", cat="serve"):
+            fwd(params, blocks, prompt)
+            _sync(device)
         t_cold = time.perf_counter() - t1
+        _serve_latency.labels(phase="cold").observe(t_cold * 1e6)
         t2 = time.perf_counter()
-        logits = fwd(params, blocks, prompt)
-        _sync(device)
+        with obs.span("serve.forward_warm", cat="serve"):
+            logits = fwd(params, blocks, prompt)
+            _sync(device)
         t_warm = time.perf_counter() - t2
+        _serve_latency.labels(phase="warm").observe(t_warm * 1e6)
     replans = _check_replans(stats, cache_stats())
     tok_s = prompt.numel() / t_warm
     mb = f" (microbatch={microbatch})" if microbatch else ""
@@ -236,7 +254,8 @@ def serve_online(cfg, params, keep: float, *, batch: int, prompt_len: int,
     from repro_torch.serving import loadgen
 
     check_prunable(cfg)
-    blocks = prune_ffn_blocks(params, cfg, keep, policy=policy)
+    with obs.span("serve.plan", cat="serve", keep=keep):
+        blocks = prune_ffn_blocks(params, cfg, keep, policy=policy)
     base = make_pruned_forward(cfg)
 
     def forward(state, tokens):
@@ -332,22 +351,21 @@ def main(argv=None):
     ap.add_argument("--serve-queue-depth", type=int, default=64, metavar="N",
                     help="admission queue bound; submits beyond it are shed "
                     "at once")
+    ap.add_argument("--trace-out", default="", metavar="PATH",
+                    help="enable structured tracing and write the Chrome "
+                    "trace-event JSON (Perfetto-viewable) here on exit "
+                    "(REPRO_TRACE=1 enables tracing without a file)")
     ap.add_argument("--metrics-out", default="", metavar="PATH",
                     help="write a JSON snapshot of the metrics registry "
-                    "(serving counters and latency histograms, program "
-                    "cache counters) here on exit")
-    # The reference's flags of paths this port has not reached yet.
-    later = {"--mesh": "sharded plans",
-             "--trace-out": "trace export"}
-    for flag in later:
-        ap.add_argument(flag, nargs="?", const=True, default=None,
-                        help=argparse.SUPPRESS)
+                    "(latency histograms, plan-cache counters, ladder rung "
+                    "rates, serving and program-cache counters) here on "
+                    "exit")
+    # The reference's flag of a path this port has not reached yet.
+    ap.add_argument("--mesh", nargs="?", const=True, default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
-    given = [f for f in later
-             if getattr(args, f.lstrip("-").replace("-", "_")) is not None]
-    if given:
-        ap.error(", ".join(f"{f} ({later[f]})" for f in given)
-                 + ": not ported to repro_torch yet")
+    if args.mesh is not None:
+        ap.error("--mesh (sharded plans): not ported to repro_torch yet")
     if args.prune_ffn <= 0.0:
         # These flags only shape the pruned-FFN path; silently ignoring
         # them hides typos like a forgotten --prune-ffn.
@@ -367,6 +385,8 @@ def main(argv=None):
                          "pass --device cpu to run the plain versions")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.trace_out:
+        obs.enable()
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if cfg.input_mode != "tokens":
         raise SystemExit(
@@ -403,23 +423,29 @@ def main(argv=None):
             rungs = {f"{rung}/{method}": n for (rung, method), n in
                      resolve_counts(since=resolved).items()}
             print(f"[serve] plan_resolve_total of this run: {rungs}")
-        _export_metrics(args)
+        _export_obs(args)
         return 0
     _sync(device)
     t0 = time.perf_counter()
-    out = generate(cfg, params, prompt, args.gen)
-    _sync(device)
+    with obs.span("serve.generate", cat="serve", gen=args.gen):
+        out = generate(cfg, params, prompt, args.gen)
+        _sync(device)
     dt = time.perf_counter() - t0
+    _serve_latency.labels(phase="generate").observe(dt * 1e6)
     print(f"generated {tuple(out.shape)} in {dt:.2f}s "
           f"({args.batch * args.gen / dt:.1f} tok/s)")
     print(out[0, -args.gen:].tolist())
-    _export_metrics(args)
+    _export_obs(args)
     return 0
 
 
-def _export_metrics(args) -> None:
+def _export_obs(args) -> None:
+    if args.trace_out:
+        tr = obs.get_tracer()
+        print(f"[serve] trace: {tr.export(args.trace_out)} "
+              f"({len(tr)} events)")
     if args.metrics_out:
-        print(f"[serve] metrics: {obs.dump(args.metrics_out)}")
+        print(f"[serve] metrics: {obs.dump_metrics(args.metrics_out)}")
 
 
 if __name__ == "__main__":

@@ -11,8 +11,10 @@ Each step is ``runtime.steps.make_train_step``: forward and backward
 with per-block remat and the chunked loss, then AdamW (``optim.adamw``),
 optionally through int8 error-feedback compression.  MoE experts run
 through the batched matmul (the grouped GEMM kernel has no backward).
-Device meshes, sharded SpMM plans and trace export are later slices of
-the port; the CLI rejects ``--spmm-shards`` and ``--trace-out``.
+``--trace-out PATH`` turns tracing on (a ``train.step`` span a step) and
+writes the Chrome trace there; ``--metrics-out PATH`` dumps the metrics
+registry.  Device meshes and sharded SpMM plans are later slices of the
+port; the CLI rejects ``--spmm-shards``.
 """
 from __future__ import annotations
 
@@ -62,24 +64,22 @@ def main(argv=None):
                     choices=("",) + registry.method_names(),
                     help="force the SpMM kernel method for sparse-layer "
                     "plan rebuilds (default: auto)")
+    ap.add_argument("--trace-out", default="", metavar="PATH",
+                    help="enable structured tracing and write the Chrome "
+                    "trace-event JSON here on exit")
     ap.add_argument("--metrics-out", default="", metavar="PATH",
                     help="write a JSON snapshot of the metrics registry "
                     "(step-latency histogram, plan counters) on exit")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; 'cpu' runs the "
                     "plain versions)")
-    # The reference's flags of paths this port has not reached yet.
-    later = {"--spmm-shards": "sharded SpMM plans",
-             "--trace-out": "trace export"}
-    for flag in later:
-        ap.add_argument(flag, nargs="?", const=True, default=None,
-                        help=argparse.SUPPRESS)
+    # The reference's flag of a path this port has not reached yet.
+    ap.add_argument("--spmm-shards", nargs="?", const=True, default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
-    given = [f for f in later
-             if getattr(args, f.lstrip("-").replace("-", "_")) is not None]
-    if given:
-        ap.error(", ".join(f"{f} ({later[f]})" for f in given)
-                 + ": not ported to repro_torch yet")
+    if args.spmm_shards is not None:
+        ap.error("--spmm-shards (sharded SpMM plans): not ported to "
+                 "repro_torch yet")
     if args.global_batch % args.microbatches:
         ap.error(f"--global-batch {args.global_batch} does not split into "
                  f"--microbatches {args.microbatches}")
@@ -89,6 +89,8 @@ def main(argv=None):
                          "pass --device cpu to run the plain versions")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.trace_out:
+        obs.enable()
 
     if args.tunedb:
         from repro_torch import engine
@@ -137,9 +139,10 @@ def main(argv=None):
     for step in range(start_step, args.steps):
         batch = _to_device(source.batch_at(step), device, args.microbatches)
         with fault.StepTimer() as t:
-            state, metrics = step_fn(state, batch)
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
+            with obs.span("train.step", cat="train", step=step):
+                state, metrics = step_fn(state, batch)
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
         _step_latency.observe(t.seconds * 1e6)
         if watermark.observe(step, t.seconds):
             print(f"[straggler] step {step} took {t.seconds:.2f}s")
@@ -175,8 +178,12 @@ def _to_device(batch: dict, device, microbatches: int) -> dict:
 
 
 def _export_obs(args) -> None:
+    if args.trace_out:
+        tr = obs.get_tracer()
+        print(f"[train] trace: {tr.export(args.trace_out)} "
+              f"({len(tr)} events)")
     if args.metrics_out:
-        print(f"[train] metrics: {obs.dump(args.metrics_out)}")
+        print(f"[train] metrics: {obs.dump_metrics(args.metrics_out)}")
 
 
 if __name__ == "__main__":

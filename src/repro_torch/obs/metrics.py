@@ -2,9 +2,10 @@
 
 A small in-process registry in the Prometheus shape -- metric *families*
 declared once with a label schema, label-bound children created on
-demand -- backing the program cache's counters and the online server's
-request counters and latency histograms (a copy of the reference's
-``repro.obs.metrics``).
+demand -- backing the engine's counters (plan-cache events, ladder rung
+rates, dispatch counts), the program cache's, and the launchers' and the
+online server's counters and latency histograms (a copy of the
+reference's ``repro.obs.metrics``).
 
 Every child guards its state with its own lock, so concurrent executors
 (the server's batcher thread and its submitters) never lose increments.
@@ -337,14 +338,3 @@ class MetricsRegistry:
 # The process-global registry: instrumentation sites across the port share
 # it without import-order coupling.
 registry = MetricsRegistry()
-
-
-def report() -> str:
-    """Text exposition of the global registry."""
-    return registry.report()
-
-
-def dump(path: str, *, extra: dict | None = None) -> str:
-    """Write the global registry's JSON snapshot (``--metrics-out``);
-    returns the path."""
-    return registry.dump(path, extra=extra)

@@ -20,8 +20,10 @@ exponential backoff through ``repro_torch.distributed.fault.retry``.
 Counters on the global registry: ``serve_requests_total{outcome=ok|shed|
 error}``, ``serve_request_latency_us{phase=queue_wait|assemble|execute|
 total}``, ``serve_batch_occupancy`` (true requests / bucket batch) and
-``serve_retries_total``.  The reference's trace spans wait for the port of
-its tracer.
+``serve_retries_total``.  While tracing is on (``repro_torch.obs``): the
+``serve.warmup``, ``serve.batch`` and ``serve.execute`` spans and the
+``serve.enqueue``, ``serve.retry`` and ``serve.shed`` events, as the
+reference's server emits them.
 
 Threads and streams: once :meth:`Server.start` has run, only the batcher
 thread runs programs.  A CUDA graph's output is static -- the next replay
@@ -46,6 +48,7 @@ from repro_torch.distributed import fault
 from repro_torch.engine.programs import (ProgramCache, bucket_program,
                                          state_device)
 from repro_torch.obs import registry as _metrics
+from repro_torch.obs import trace as _trace
 from repro_torch.runtime.steps import ensure_spmm_plans
 
 from .buckets import BucketLadder, pack
@@ -166,9 +169,11 @@ class Server:
         Idempotent; records the post-warmup miss count so
         :meth:`recompiles` can assert the steady state built nothing.
         """
-        self.state = ensure_spmm_plans(self.state)
-        for b, s in self.ladder.shapes():
-            self.program(b, s)
+        shapes = self.ladder.shapes()
+        with _trace.span("serve.warmup", cat="serve", buckets=len(shapes)):
+            self.state = ensure_spmm_plans(self.state)
+            for b, s in shapes:
+                self.program(b, s)
         self._warm_misses = self.programs.stats().misses
         return self
 
@@ -222,6 +227,10 @@ class Server:
             self._q.put_nowait(p)
         except _queue.Full:
             self._shed(p, f"queue full (depth {self.queue_depth})")
+            return p.future
+        if _trace._enabled:
+            _trace.event("serve.enqueue", cat="serve", length=length,
+                         depth=self._q.qsize())
         return p.future
 
     # ---------------------------------------------------------- batcher ---
@@ -292,20 +301,24 @@ class Server:
     def _execute(self, bb: int, lb: int, ps: list[_Pending]) -> None:
         t_asm0 = time.perf_counter()
         try:
-            mat = np.full((bb, lb), self.pad_id, np.int64)
-            for i, p in enumerate(ps):
-                mat[i, :p.length] = p.tokens
-                p.future.bucket, p.future.row = (bb, lb), i
-                p.future.packed = mat
-            tok = torch.from_numpy(mat).to(self.device)
-            program = self.program(bb, lb)
+            with _trace.span("serve.batch", cat="serve", batch=bb,
+                             length=lb, fill=len(ps)):
+                mat = np.full((bb, lb), self.pad_id, np.int64)
+                for i, p in enumerate(ps):
+                    mat[i, :p.length] = p.tokens
+                    p.future.bucket, p.future.row = (bb, lb), i
+                    p.future.packed = mat
+                tok = torch.from_numpy(mat).to(self.device)
+                program = self.program(bb, lb)
             _batch_occupancy.observe(len(ps) / bb)
             t_exec0 = time.perf_counter()
-            rows = fault.retry(lambda: self._run(program, tok, ps),
-                               attempts=self.retry_attempts,
-                               backoff=self.retry_backoff_s,
-                               exceptions=self.transient,
-                               on_retry=self._on_retry)
+            with _trace.span("serve.execute", cat="serve", batch=bb,
+                             length=lb):
+                rows = fault.retry(lambda: self._run(program, tok, ps),
+                                   attempts=self.retry_attempts,
+                                   backoff=self.retry_backoff_s,
+                                   exceptions=self.transient,
+                                   on_retry=self._on_retry)
         except Exception as e:
             # Futures must never hang: the whole bucket batch fails
             # together once retries are exhausted.
@@ -350,8 +363,14 @@ class Server:
 
     def _on_retry(self, attempt: int, exc: Exception) -> None:
         _retries_total.inc()
+        if _trace._enabled:
+            _trace.event("serve.retry", cat="serve", attempt=attempt,
+                         error=type(exc).__name__)
 
     def _shed(self, p: _Pending, why: str) -> None:
         _requests_total.labels(outcome="shed").inc()
+        if _trace._enabled:
+            _trace.event("serve.shed", cat="serve", length=p.length,
+                         why=why)
         p.future.done_s = time.perf_counter()
         p.future.set_exception(RequestShed(why))

@@ -113,8 +113,8 @@ def test_main_default_args_smoke_on_cpu():
 @pytest.mark.parametrize("argv", [
     ["--smoke", "--device", "cpu", "--mesh", "2"],
     ["--smoke", "--device", "cpu", "--prune-ffn", "0.25", "--mesh", "2"],
-    ["--smoke", "--device", "cpu", "--prune-ffn", "0.25", "--trace-out",
-     "trace.json"],
+    ["--smoke", "--device", "cpu", "--prune-ffn", "0.25", "--serve",
+     "--mesh", "2"],
 ])
 def test_main_rejects_paths_not_ported(argv, capsys):
     with pytest.raises(SystemExit) as e:
