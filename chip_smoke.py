@@ -191,9 +191,30 @@ NVIDIA H100 (sm_90a) and the CUDA toolkit.  Phases, each timed:
               to row-split alone, metrics validated); ``planlint --suite
               mini`` on the card;
               the train CLI with ``--trace-out`` / ``--metrics-out``;
-11. summary — a ``kernels`` JSON line (each row with its roof fraction),
-              the card's name and power limit, and last the ``{"ok":
-              true, ...}`` line.
+11. analysis — (in a process of its own, whose profiler capture is its
+              first) the CUDA launch models (``repro_torch.kernels.
+              introspect``) held against the card: row-split at
+              Llama-3.2-1B layer 0's
+              w1, w3, w2 (n = 128, f32, and w1 in bf16), rowgroup's
+              buckets, merge's range kernel and fix-up and the SDDMM on
+              the same matrices, the grouped GEMM's wgmma body at
+              OLMoE-1B-7B's two layer shapes (bf16) and flash attention's
+              wgmma body at Llama-3.2-1B 1 x 2048 (bf16), each launched
+              once under ``torch.profiler``, each call in its own range:
+              the port's kernels in a call's range equal, in order, its
+              models, none left over; the trace's grid, block and
+              shared memory equal to the model's, its registers equal to
+              ``cuobjdump -res-usage``'s and times the block and the
+              ``__launch_bounds__`` blocks within an SM's 65,536, the
+              static shared memory it reports equal to the model's; each
+              launch's requested
+              bytes, their ratio to its compulsory bytes and the request
+              rate over its CUDA-event time; ``python -m
+              repro_torch.analysis all`` on the card (lint, planlint,
+              audit, ``traffic --check``, exit 0);
+12. summary — a ``kernels`` JSON line (each row with its roof fraction
+              and its launch model), the card's name and power limit, and
+              last the ``{"ok": true, ...}`` line.
 
 Exits non-zero, printing no result, when torch sees no CUDA device, when
 the package is not beside this script, or when any phase fails.
@@ -3889,6 +3910,312 @@ def observability(timings, dev, card, reset_counts, read_counts) -> dict:
     return dict(roofline=roofline, serving=serving, online=online)
 
 
+# ----------------------------------------------------------- analysis --
+
+
+def kernel_resources(lib_path) -> dict:
+    """Registers and static shared memory of every kernel entry of the
+    library, by normalized demangled name: ``cuobjdump -res-usage`` of it
+    (equal to ptxas's report, less the 1 KB a block its SHARED count
+    adds), names demangled with ``c++filt`` (the toolkit's ``cu++filt``
+    without it)."""
+    import re
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels import introspect as I
+    found = {}
+    tool = os.path.join(os.path.dirname(_cuda.nvcc_path()), "cuobjdump")
+    out = subprocess.run([tool, "-res-usage", str(lib_path)],
+                         capture_output=True, text=True, check=True,
+                         timeout=120).stdout.splitlines()
+    for i, line in enumerate(out):
+        mt = re.search(r"Function (\S+):", line)
+        if mt and i + 1 < len(out):
+            regs = re.search(r"REG:(\d+)", out[i + 1])
+            smem = re.search(r"SHARED:(\d+)", out[i + 1])
+            # SHARED adds the 1 KB a block the runtime reserves on sm_90
+            # to a kernel with shared memory (ptxas's "bytes smem" does
+            # not).
+            found[mt.group(1)] = (int(regs.group(1)), max(
+                int(smem.group(1)) - I.H100_SXM.smem_reserved_block, 0))
+    if not found:
+        raise AssertionError(f"cuobjdump -res-usage {lib_path}: no kernel")
+    names = sorted(found)
+    filt = shutil.which("c++filt") or os.path.join(
+        os.path.dirname(_cuda.nvcc_path()), "cu++filt")
+    dem = subprocess.run([filt, *names], capture_output=True, text=True,
+                         check=True, timeout=60).stdout.splitlines()
+    if len(dem) != len(names):
+        raise AssertionError(f"{filt} demangled {len(dem)} of {len(names)} "
+                             "kernel names")
+    return {I.normalize_symbol(d): found[n] for n, d in zip(names, dem)}
+
+
+def hold_launch(model, event, res, card, what) -> dict:
+    """One modeled launch against the profiler's record of it (grid,
+    block, shared memory, registers) and the library's resource usage
+    (registers, static shared memory); raises on any mismatch."""
+    from repro_torch.kernels import introspect as I
+    args = event["args"]
+    grid = tuple(args["grid"])
+    block = tuple(args["block"])
+    smem = int(args["shared memory"])
+    regs = int(args["registers per thread"])
+    sym = I.normalize_symbol(model.symbol)
+    p_regs, p_smem = res.get(sym, (None, None))
+    resident = max(model.min_blocks, 1)
+    problems = []
+    if grid != tuple(model.grid):
+        problems.append(f"grid {grid} != model {model.grid}")
+    if block != (model.block, 1, 1):
+        problems.append(f"block {block} != model ({model.block}, 1, 1)")
+    if smem != model.smem:
+        problems.append(f"shared memory {smem} != model {model.smem} "
+                        f"(dynamic {model.dynamic_smem} + static "
+                        f"{model.static_smem})")
+    if p_regs is None:
+        problems.append(f"cuobjdump -res-usage reports no {sym}")
+    else:
+        if regs != p_regs:
+            problems.append(f"registers {regs} != cuobjdump {p_regs}")
+        if p_smem != model.static_smem:
+            problems.append(f"static shared memory {p_smem} (cuobjdump) "
+                            f"!= model {model.static_smem}")
+    if regs * model.block * resident > card.regs_sm:
+        problems.append(f"{regs} registers x {model.block} threads x "
+                        f"{resident} blocks > {card.regs_sm} an SM")
+    if problems:
+        raise AssertionError(f"analysis {what} {model.label} ({sym}): "
+                             + "; ".join(problems))
+    return dict(grid=list(grid), block=model.block, smem_bytes=smem,
+                registers=regs)
+
+
+def call_windows(events: list, n_calls: int) -> tuple:
+    """The port's (``repro::``) kernel events of a chrome trace, in time
+    order, and those of each ``analysis call <i>`` range: a kernel belongs
+    to the range that holds the runtime call launching it (matched by its
+    correlation id).  Raises on a missing range or on a kernel outside
+    every range."""
+    from repro_torch.kernels import introspect as I
+    spans = {e["name"]: (e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "user_annotation"
+             and e["name"].startswith("analysis call ")}
+    if len(spans) != n_calls:
+        raise AssertionError(f"analysis: {len(spans)} call ranges in the "
+                             f"trace for {n_calls} calls")
+    ranges = [spans[f"analysis call {i}"] for i in range(n_calls)]
+    launch_at = {e["args"]["correlation"]: e["ts"] for e in events
+                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                 and "correlation" in e.get("args", {})}
+    ours = sorted((e for e in events if e.get("cat") == "kernel"
+                   and I.normalize_symbol(e["name"]).startswith("repro::")),
+                  key=lambda e: e["ts"])
+    windows = [[] for _ in range(n_calls)]
+    for e in ours:
+        t = launch_at.get(e["args"].get("correlation"))
+        at = [i for i, (t0, t1) in enumerate(ranges)
+              if t is not None and t0 <= t <= t1]
+        if len(at) != 1:
+            raise AssertionError(
+                f"analysis: kernel {e['name'][:80]} launched outside every "
+                f"call's range (launch at {t})")
+        windows[at[0]].append(e)
+    return ours, windows
+
+
+def analysis(dev, card, lib_path, roof_gb_s) -> dict:
+    """The ``analysis`` phase: each modeled launch of the main paths run
+    once under ``torch.profiler`` and held against its launch model
+    (``repro_torch.kernels.introspect``) and the library's resource
+    usage: in each call's own ``record_function`` range, the port's
+    kernels the trace shows equal, in order, the call's models that name a
+    symbol, with none left over.  Then each one's requested
+    bytes, their ratio to the compulsory bytes and the request rate over
+    its CUDA-event time; then ``python -m repro_torch.analysis all`` on
+    the card.  Any mismatch or finding raises."""
+    from repro_torch.analysis import cli as lint_cli
+    from repro_torch.analysis.kernel_audit import Variant
+    from repro_torch.core import PlanPolicy, build_plan, prune_to_csr
+    from repro_torch.kernels import _cuda, flash_attention, moe_gemm, sddmm
+    from repro_torch.kernels import introspect as I
+    from repro_torch.kernels import registry
+    from repro_torch.obs import roofline as R
+    from torch.profiler import ProfilerActivity, profile, record_function
+    out_dir = _cuda.BUILD_DIR / "analysis"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    res = kernel_resources(lib_path)
+    print(f"analysis: {len(res)} kernel entries from cuobjdump -res-usage, "
+          "e.g. " + ", ".join(sorted(res)[:3]))
+    lim = I.card_of(dev)
+    print(f"card limits (get_device_properties): {lim}")
+    n = SERVE_BATCH * SERVE_PROMPT
+    calls = []           # (kernel row, label, fn, models, compulsory bytes)
+    narrow = {}          # w1 / w2 plans by method, for the model-only rows
+
+
+    for i, (mname, (m, k)) in enumerate(
+            (("w1", LLAMA_FFN["w1"]), ("w3", LLAMA_FFN["w1"]),
+             ("w2", LLAMA_FFN["w2"]))):
+        g = torch.Generator(device=dev).manual_seed(40 + i)
+        w = torch.randn(m, k, generator=g, device=dev) * k ** -0.5
+        a = prune_to_csr(w, KEEP)
+        del w
+        b = torch.randn(k, n, generator=g, device=dev)
+        dts = ("float32", "bfloat16") if mname == "w1" else ("float32",)
+        plans = {method: build_plan(a, PlanPolicy(method=method,
+                                                  with_transpose=False))
+                 for method in ("rowsplit", "rowgroup", "merge")}
+        if mname != "w3":
+            narrow[mname] = plans
+        for dt in dts:
+            v = Variant(dt, dt, dt, "float32", None, None)
+            tdt = getattr(torch, dt)
+            vals, bb = a.vals.to(tdt), b.to(tdt)[None]
+            floor = R.plan_min_bytes(plans["rowsplit"].meta, n, val_dtype=dt)
+            for method in (plans if dt == "float32" else ("rowsplit",)):
+                plan, spec = plans[method], registry.get_method(method)
+                models = spec.traffic(plan, n, 1, v, lim)
+                row = "merge_spmm" if method == "merge" else "rowsplit_spmm"
+                fn = (lambda p=plan, s=spec, vv=vals, b3=bb:
+                      s.execute(p.meta, p.fwd, vv, b3, impl="cuda"))
+                calls.append((row, f"{method} {mname} {dt}", fn, models,
+                              floor))
+        fwd = plans["rowsplit"].fwd
+        dc = torch.randn(1, m, n, generator=g, device=dev)
+        models = sddmm.launch_models(
+            fwd["nz_rows"], fwd["nz_cols"], fwd["nz_valid"], m=m, k=k, n=n,
+            batch=1, dc_dtype="float32", b_dtype="float32")
+        fn = (lambda f=fwd, d=dc, b3=b[None]: sddmm.sddmm_cuda(
+            f["nz_rows"], f["nz_cols"], f["nz_valid"], d, b3))
+        calls.append(("sddmm", f"sddmm {mname} float32", fn, models,
+                      R.sddmm_min_bytes(a.nnz_pad, m, k, n)))
+    n_exp, tt = 64, moe_gemm.TT
+    be = torch.arange(n_exp, dtype=torch.int32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(50)
+    for d_in, d_out in MOE_FULL:
+        x = torch.randn(n_exp * tt, d_in, generator=g, device=dev).to(
+            torch.bfloat16)
+        wt = (torch.randn(n_exp, d_in, d_out, generator=g, device=dev)
+              * d_in ** -0.5).to(torch.bfloat16)
+        models = moe_gemm.launch_models(be, tokens=n_exp * tt, d_in=d_in,
+                                        d_out=d_out, n_experts=n_exp,
+                                        dtype="bfloat16", card=lim)
+        floor = 2 * (x.numel() + wt.numel() + n_exp * tt * d_out) + 4 * n_exp
+        fn = (lambda xx=x, ww=wt: moe_gemm.moe_group_gemm_cuda(xx, ww, be))
+        calls.append(("moe_gemm", f"moe {d_in}x{d_out} bf16", fn, models,
+                      floor))
+    q, kk, vv = flash_inputs(torch.Generator(device=dev).manual_seed(51),
+                             1, 2048, 32, 8, 64, torch.bfloat16, dev)
+    models = flash_attention.launch_models(b=1, s=2048, h=32, kvh=8, dh=64,
+                                           dtype="bfloat16")
+    calls.append(("flash_attention", "flash 1x2048 bf16",
+                  lambda: flash_attention.flash_attention_cuda(q, kk, vv),
+                  models, 2 * (2 * q.numel() + kk.numel() + vv.numel())))
+    # The models alone at the online buckets' narrower widths (no launch):
+    # what a warp requests when 2 or 8 of its lanes hold columns.
+    for mname in ("w1", "w2"):
+        plan = narrow[mname]
+        for method in ("rowsplit", "merge"):
+            p = plan[method]
+            per = {nn: sum(mm.requested_bytes() for mm in
+                           registry.get_method(method).traffic(
+                               p, nn, 1, Variant("f32", "float32",
+                                                 "float32", "float32", None,
+                                                 None), lim))
+                   for nn in (8, 32, n)}
+            print(f"analysis model {method} {mname} n 8 / 32 / {n}: "
+                  + " / ".join(f"{b} B ({b / p.meta.nnz_pad:.2f} B a "
+                               "nonzero)" for b in per.values()))
+    del narrow
+    for _, _, fn, _, _ in calls:                 # warm: nothing to build
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i, (_, _, fn, _, _) in enumerate(calls):
+            with record_function(f"analysis call {i}"):
+                fn()
+                torch.cuda.synchronize()
+    trace = out_dir / "launches_trace.json"
+    prof.export_chrome_trace(str(trace))
+    with open(trace, encoding="utf-8") as f:
+        events = json.load(f)["traceEvents"]
+    ours, windows = call_windows(events, len(calls))
+    print(f"analysis: {len(ours)} of the port's kernel events in "
+          f"{trace.name}, each inside one call's range; registers and "
+          "static shared memory from cuobjdump -res-usage")
+    by_row = {name: [] for name in KERNELS}
+    for (row, label, fn, models, floor), got in zip(calls, windows):
+        modeled = [mm for mm in models if mm.symbol is not None]
+        want = [I.normalize_symbol(mm.symbol) for mm in modeled]
+        seen = [I.normalize_symbol(e["name"]) for e in got]
+        if seen != want:
+            raise AssertionError(
+                f"analysis {label}: the trace's launches {seen} != the "
+                f"models' {want}")
+        held = [hold_launch(mm, e, res, lim, label)
+                for mm, e in zip(modeled, got)]
+        ms = time_ms(fn)
+        req = sum(mm.requested_bytes() for mm in models)
+        rec = dict(label=label, launches=held, requested_bytes=req,
+                   compulsory_bytes=int(floor), ratio=req / floor, ms=ms,
+                   request_tb_s=req / ms / 1e9)
+        by_row[row].append(rec)
+        print(f"analysis {label:24s}: "
+              + "; ".join(f"{mm.label} grid {h['grid']} block {h['block']} "
+                          f"smem {h['smem_bytes']} regs {h['registers']}"
+                          for mm, h in zip([x for x in models if x.symbol],
+                                           held))
+              + f" -- held; requested {req} B, {req / floor:.2f}x the "
+              f"{int(floor)} compulsory B; {ms:.4f} ms, requests at "
+              f"{req / ms / 1e9:.3f} TB/s (measured roof {roof_gb_s:.2f} "
+              f"GB/s); {card}")
+    del calls, q, kk, vv, x, wt
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rc = lint_cli.main(["all", "--json", str(out_dir / "analysis_all.json")])
+    if rc:
+        raise AssertionError(f"python -m repro_torch.analysis all on the "
+                             f"card: exit {rc}")
+    print(f"python -m repro_torch.analysis all on the card: exit 0 "
+          f"({time.perf_counter() - t0:.2f} s)")
+    return by_row
+
+
+def analysis_child() -> int:
+    """The analysis phase in a process of its own (``python3 -c``, argv:
+    the library, the measured roof in GB/s and the JSON path its result
+    goes to): a profiler capture that is the process's first records every
+    kernel launch, where one taken after the earlier phases' captures kept
+    only the last few."""
+    lib_path, roof, out = sys.argv[1:4]
+    sys.path.insert(0, SRC)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = analysis(torch.device("cuda", 0), gpu_line(), lib_path,
+                    float(roof))
+    with open(out, "w", encoding="utf-8") as f:
+        json.dump(rows, f)
+    return 0
+
+
+def run_analysis(lib_path, roof_gb_s: float) -> dict:
+    """:func:`analysis_child` as a subprocess; its launch-model rows."""
+    from repro_torch.kernels import _cuda
+    out_dir = _cuda.BUILD_DIR / "analysis"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    out = out_dir / "launch_models.json"
+    code = (f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke; "
+            "sys.exit(chip_smoke.analysis_child())")
+    sys.stdout.flush()
+    proc = subprocess.run([sys.executable, "-c", code, str(lib_path),
+                           str(roof_gb_s), str(out)],
+                          timeout=600, check=False)
+    if proc.returncode:
+        raise AssertionError(f"analysis phase: exit {proc.returncode}")
+    with open(out, encoding="utf-8") as f:
+        return json.load(f)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -4310,6 +4637,11 @@ def main() -> int:
     roof_rows = observed["roofline"]["kernels"]
     done("obs", t0)
 
+    # --------------------------------------------------------- analysis --
+    t0 = phase("analysis")
+    modeled = run_analysis(lib_path, observed["roofline"]["roof_gb_s"])
+    done("analysis", t0)
+
     # ---------------------------------------------------------- summary --
     rows = []
     for kname, kspec in KERNELS.items():
@@ -4336,7 +4668,8 @@ def main() -> int:
             "plain_ms": acc["plain_ms"], "bound_ms": acc["bound_ms"],
             "bound_by": acc["bound_by"], "library_ms": acc["library_ms"],
             "roof_fraction": roof_rows[kname]["roof_fraction"],
-            "roof_bound_ms": roof_rows[kname]["roof_bound_ms"]}
+            "roof_bound_ms": roof_rows[kname]["roof_bound_ms"],
+            "launch_model": modeled[kname]}
         if kname == "merge_spmm":
             row["backward_dB"] = dict(
                 backward["merge_dB"],
@@ -4394,7 +4727,12 @@ def main() -> int:
           "(the reference's roofline models) over ms, as a fraction of the "
           "card's measured copy-scale roof, roof_bound_ms those bytes at "
           "that roof (bound_ms takes the data sheet's 3.35 TB/s and the "
-          "operations); "
+          "operations); launch_model: the analysis phase's launches, each "
+          "held to its launch model (grid, block, shared memory; "
+          "registers from the profiler and cuobjdump), the bytes the model "
+          "says it requests, their ratio to the call's compulsory bytes and "
+          "their rate over its CUDA-event ms (launches made to hold the "
+          "models are counted in no launches_* field); "
           "max_abs_err: worst parity case, forward, gradient, the online "
           "buckets' widths, the MoE layers (OLMoE's and the Mixtral "
           "cut's), RecurrentGemma-2B's served plans and the attention "

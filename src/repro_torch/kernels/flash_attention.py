@@ -31,7 +31,9 @@ that would need a gradient raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
+import numpy as np
 import torch
 
 from . import _cuda
@@ -127,3 +129,98 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
     LAUNCHES += 1
     LAUNCHES_BY_BODY[name] = LAUNCHES_BY_BODY.get(name, 0) + 1
     return out
+
+
+# ------------------------------------------------------ the launch model ---
+
+# csrc/flash_attention.cu: the mma.sync and f32 bodies' tiles and threads
+# (kFaBM, kFaBN, kFaThreads, :72-74; no __launch_bounds__ minimum), the
+# mma.sync body's static K and V tiles (bf16 [64][dh + 8] each) and the
+# f32 body's dynamic tiles (flash_f32_smem, :689); the wgmma body's
+# WgCfg<dh> (kConsumers, kBM, kThreads, kQBytes, kKvBytes, kSmem,
+# :353-363), its mbarriers (uint64 q_full and four [kStages] arrays,
+# :523; 72 bytes, which the compiler pads to 80) and
+# __launch_bounds__(kThreads, 1); fa_grid (:873).
+FA_BM, FA_BN, FA_THREADS = 64, 64, 128
+WG_BN, WG_STAGES, WG_ROW_BYTES = 128, 2, 128
+WG_MBARRIERS = 8 + 4 * 8 * WG_STAGES
+
+
+def wg_cfg(dh: int) -> dict:
+    """``WgCfg<dh>``: consumer warpgroups, query rows and threads of a
+    block, and its dynamic shared memory."""
+    consumers = 3 if dh == 64 else 2
+    bm = 64 * consumers
+    boxes = dh // 64
+    q_bytes = boxes * bm * WG_ROW_BYTES
+    kv_bytes = boxes * WG_BN * WG_ROW_BYTES
+    return dict(bm=bm, threads=128 * (consumers + 1),
+                smem=q_bytes + 2 * WG_STAGES * kv_bytes + 1024)
+
+
+def launch_models(*, b: int, s: int, h: int, kvh: int, dh: int,
+                  dtype) -> list:
+    """The launch of one :func:`flash_attention_cuda` call, as
+    ``launch_flash`` sets it up: the body (:func:`body_for`), ``fa_grid``
+    (b * h, ceil(s / rows)) with the body's rows a block, its threads
+    and shared memory.
+
+    Requested bytes: a block reads its query rows once, the K and V rows
+    of every key tile from the first to the last that holds a key at or
+    below its last row (inside s), and writes its output rows once."""
+    from . import introspect as I
+    if b * s * h == 0:
+        return []
+    dt = I.dtype_name(dtype)
+    eb = I.nbytes(dt)
+    body = body_for(getattr(torch, dt), dh)
+    if body == "wgmma":
+        cfg = wg_cfg(dh)
+        rows, tile, threads = cfg["bm"], WG_BN, cfg["threads"]
+        symbol = I.template("flash_wgmma_kernel", dh)
+        dyn, static, min_blocks = cfg["smem"], I.static_smem(
+            WG_MBARRIERS), 1
+    else:
+        rows, tile, threads = FA_BM, FA_BN, FA_THREADS
+        min_blocks = 0
+        if body == "mma_sync":
+            symbol = I.template("flash_bf16_kernel", dh)
+            dyn, static = 0, I.static_smem(2 * 2 * FA_BN * (dh + 8))
+        else:
+            symbol = I.template("flash_f32_kernel", dh)
+            dyn = 4 * ((FA_BM + FA_BN) * (dh + 1) + FA_BN * dh
+                       + FA_BM * (FA_BN + 1))
+            static = 0
+    q_tiles = -(-s // rows)
+    q0 = np.arange(q_tiles) * rows
+    q_rows = np.minimum(rows, s - q0)
+    if body == "wgmma":    # key tiles up to the block's last row, inside s
+        n_tiles = np.minimum(-(-(q0 + rows) // tile), -(-s // tile))
+    else:                  # kt = 0 .. qt (tiles of kFaBN = kFaBM keys)
+        n_tiles = np.arange(q_tiles) + 1
+    kv_rows = np.array([min(s, tile * int(t)) for t in n_tiles])
+    row = dh * eb
+    ops = (
+        I.OperandAccess("q", dt, (b, s, h, dh), "in",
+                        read_bytes=b * h * row * int(q_rows.sum())),
+        I.OperandAccess("k", dt, (b, s, kvh, dh), "in",
+                        read_bytes=b * h * row * int(kv_rows.sum())),
+        I.OperandAccess("v", dt, (b, s, kvh, dh), "in",
+                        read_bytes=b * h * row * int(kv_rows.sum())),
+        I.OperandAccess("out", dt, (b, s, h, dh), "out",
+                        write_bytes=b * h * row * s))
+    stride = h * dh * eb                    # one query row to the next
+    if body == "simt":     # lane: columns lane % 8 + 8 j of 4 rows
+        out = I.WarpAccess("o store", tuple(
+            I.lanes(r * stride, 4, 4, range(8)) for r in range(4)))
+    else:   # lane: row lane / 4 (+ 8), 2 bf16 at 2 (lane % 4) + 8 j
+        out = I.WarpAccess("o store", tuple(
+            tuple((r * stride + 4 * quad, 4) for quad in range(4))
+            for r in range(8)))
+    by_name = {"out": (out,), "q": (), "k": (), "v": ()}
+    ops = tuple(dataclasses.replace(o, warp=by_name[o.name]) for o in ops)
+    return [I.KernelLaunch(
+        label=f"flash {body}", symbol=symbol, source="flash_attention.cu",
+        grid=(b * h, q_tiles, 1), block=threads, dynamic_smem=dyn,
+        static_smem=static, min_blocks=min_blocks, body=body, operands=ops,
+        in_dtypes=(dt, dt))]

@@ -31,7 +31,9 @@ tokens and one expert, whatever the routing skew.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
+import numpy as np
 import torch
 
 from . import _cuda
@@ -133,3 +135,143 @@ def moe_group_gemm_cuda(x: torch.Tensor, w: torch.Tensor,
     LAUNCHES += 1
     LAUNCHES_BY_BODY[name] = LAUNCHES_BY_BODY.get(name, 0) + 1
     return out
+
+
+# ------------------------------------------------------ the launch model ---
+
+# csrc/moe_gemm.cu: the SIMT and WMMA bodies' tiles and threads (kMoeBM,
+# kMoeBN, kMoeBK, kMoeThreads, :66-69; no __launch_bounds__ minimum) and
+# their static arrays (f32: xs float [32][65], ws float [32][128]; bf16:
+# xs bf16 [64][40], ws bf16 [32][136], os float [64][132]); the wgmma
+# body's item, stages, threads and dynamic shared memory (kGmBM, kGmBN,
+# kGmBK, kGmStages, kGmThreads, kGmSmem, :334-349), its mbarriers
+# (uint64 full[4], empty[4]) and __launch_bounds__(kGmThreads, 1).
+MOE_BM, MOE_BN, MOE_BK, MOE_THREADS = 64, 128, 32, 256
+SMEM_F32 = 4 * 32 * 65 + 4 * 32 * 128
+SMEM_BF16 = 2 * 64 * 40 + 2 * 32 * 136 + 4 * 64 * 132
+GM_BM, GM_BN, GM_BK, GM_STAGES, GM_THREADS = 64, 128, 64, 4, 128 + 32
+GM_STAGE_BYTES = GM_BM * GM_BK * 2 + 2 * GM_BK * 64 * 2
+GM_SMEM = GM_STAGES * GM_STAGE_BYTES + GM_BM * (GM_BN + 8) * 2 + 1024
+GM_MBARRIERS = 8 * 2 * GM_STAGES
+
+
+def launch_models(block_expert, *, tokens: int, d_in: int, d_out: int,
+                  n_experts: int, dtype, tt: int = TT, card,
+                  aligned: bool = True) -> list:
+    """The launch of one :func:`moe_group_gemm_cuda` call, as
+    ``repro_moe_gemm`` sets it up: the body (:func:`body_for`); for
+    ``wgmma`` the persistent grid ``min(items, sms x resident)`` of
+    (64-row, 128-column) items (``moe_gemm.cu:584-588``, resident blocks
+    an SM by shared memory: one at kGmSmem), otherwise a block per
+    (64-row slice of a token block, 128 columns) (``:642-659``).
+
+    Requested bytes: a live block or item reads its x rows and its
+    expert's weight columns once over d_in (the wgmma body's TMA boxes
+    only inside the tensor), every block or item writes its output tile
+    (zeros where the expert is out of range), and each reading warp
+    loads its block's expert once."""
+    from . import introspect as I
+    be = I.host(block_expert)
+    if tokens == 0 or d_out == 0 or tokens % tt:
+        return []
+    dt = I.dtype_name(dtype)
+    eb = I.nbytes(dt)
+    body = body_for(getattr(torch, dt), tt, d_in, d_out, aligned=aligned)
+    live_blk = (be >= 0) & (be < n_experts)
+    col_tiles = -(-d_out // MOE_BN)
+    tile_cols = np.minimum(MOE_BN, d_out - MOE_BN * np.arange(col_tiles))
+    shape = dict(x=(tokens, d_in), w=(n_experts, d_in, d_out),
+                 block_expert=(tokens // tt,), out=(tokens, d_out))
+    if body == "wgmma":
+        items = tokens // GM_BM * col_tiles
+        item_blk = np.repeat(np.arange(tokens // GM_BM) * GM_BM // tt,
+                             col_tiles)
+        item_cols = np.tile(tile_cols, tokens // GM_BM)
+        live = live_blk[item_blk]
+        resident = card.resident(GM_THREADS,
+                                 GM_SMEM + I.static_smem(GM_MBARRIERS))
+        grid = (min(items, card.sms * resident), 1, 1)
+        reads_be, threads = 5, GM_THREADS      # producer + 4 consumer warps
+        symbol, dyn, static, min_blocks = (
+            I.template("moe_gemm_wgmma_kernel"), GM_SMEM,
+            I.static_smem(GM_MBARRIERS), 1)
+        rows = GM_BM
+    else:
+        row_tiles = -(-tt // MOE_BM)
+        n_blocks = tokens // tt
+        item_blk = np.repeat(np.arange(n_blocks), row_tiles * col_tiles)
+        item_rows = np.tile(np.repeat(np.minimum(
+            MOE_BM, tt - MOE_BM * np.arange(row_tiles)), col_tiles),
+            n_blocks)
+        item_cols = np.tile(tile_cols, n_blocks * row_tiles)
+        live = live_blk[item_blk]
+        grid = (n_blocks * row_tiles, col_tiles, 1)
+        reads_be, threads = MOE_THREADS // 32, MOE_THREADS
+        if body == "simt":
+            symbol = I.template("moe_gemm_f32_kernel")
+            static = I.static_smem(SMEM_F32)
+        else:
+            symbol = I.template("moe_gemm_bf16_kernel", "true" if _wmma_vec(
+                body, d_in, d_out, aligned) else "false")
+            static = I.static_smem(SMEM_BF16)
+        dyn, min_blocks, rows = 0, 0, item_rows
+    x_rows = np.where(live, rows, 0)
+    ops = (
+        I.OperandAccess("x", dt, shape["x"], "in",
+                        read_bytes=eb * d_in * int(x_rows.sum())),
+        I.OperandAccess("w", dt, shape["w"], "in", read_bytes=eb * d_in
+                        * int(np.where(live, item_cols, 0).sum())),
+        I.OperandAccess("block_expert", "int32", shape["block_expert"], "in",
+                        read_bytes=4 * reads_be * item_blk.size),
+        I.OperandAccess("out", dt, shape["out"], "out", write_bytes=eb
+                        * int((rows * item_cols).sum())),
+    )
+    ops = _moe_lanes(ops, body, d_in, d_out, eb)
+    return [I.KernelLaunch(
+        label=f"moe_gemm {body}", symbol=symbol, source="moe_gemm.cu",
+        grid=grid, block=threads, dynamic_smem=dyn, static_smem=static,
+        min_blocks=min_blocks, body=body, operands=ops,
+        in_dtypes=(dt, dt), launched=grid[0] > 0)]
+
+
+def _wmma_vec(body: str, d_in: int, d_out: int,
+              aligned: bool = True) -> bool:
+    """Whether the WMMA body loads 16-byte chunks (``repro_moe_gemm``'s
+    ``vec``)."""
+    return body == "wmma" and d_in % 8 == 0 and d_out % 8 == 0 and aligned
+
+
+def _moe_lanes(ops, body, d_in, d_out, eb):
+    """Warp 0's first instructions of item or block 0: its output tile's
+    stores (16 bytes a lane in the wgmma and vector WMMA bodies: two rows
+    of 16 lanes; one element a lane otherwise), its x tile's loads (the
+    wgmma body's TMA box: 64 rows of 128 bytes), and its weight tile's."""
+    from . import introspect as I
+    if body == "wgmma":
+        # idx = tid: row idx / 16, 8 columns at (idx % 16) * 8.
+        out = I.WarpAccess("out tile store", tuple(
+            I.lanes(r * d_out * eb, 16, 16, range(16)) for r in range(2)))
+        box = min(GM_BK, d_in) * eb
+        x = I.WarpAccess("x TMA box", tuple(
+            ((r * d_in * eb, box),) for r in range(GM_BM)))
+        w = I.WarpAccess("w TMA box", tuple(
+            ((r * d_out * eb, min(64, d_out) * eb),)
+            for r in range(min(GM_BK, d_in))))
+    elif _wmma_vec(body, d_in, d_out):
+        # 16-byte chunks: x rows of 4 lanes (kMoeBK / 8), w rows of 16.
+        out = I.WarpAccess("out tile store", (I.lanes(0, eb, eb),))
+        x = I.WarpAccess("x tile load", tuple(
+            I.lanes(r * d_in * eb, 16, 16, range(4)) for r in range(8)))
+        w = I.WarpAccess("w tile load", tuple(
+            I.lanes(r * d_out * eb, 16, 16, range(16)) for r in range(2)))
+    else:
+        # One element a lane: x rows of kMoeBK, w and out rows of kMoeBN.
+        out = I.WarpAccess("out tile store", (I.lanes(
+            0, eb, eb, range(min(32, d_out))),))
+        x = I.WarpAccess("x tile load", (I.lanes(
+            0, eb, eb, range(min(32, d_in))),))
+        w = I.WarpAccess("w tile load", (I.lanes(
+            0, eb, eb, range(min(32, d_out))),))
+    by_name = {"out": (out,), "x": (x,), "w": (w,),
+               "block_expert": (I.WarpAccess("expert", (((0, 4),),)),)}
+    return tuple(dataclasses.replace(o, warp=by_name[o.name]) for o in ops)

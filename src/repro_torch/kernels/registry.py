@@ -7,13 +7,15 @@ and the executor need; ``core.config.PlanPolicy.resolve``,
 ``core.plan.build_plan`` and ``core.spmm.execute_plan`` all dispatch
 through this table.
 
-The spec keeps the reference's nine hooks.  This port fills the ones the
-planned and the plan-per-call (``inline``) paths and the autotuner
-(``tune_candidates``, ``repro_torch.tune``) use; ``traffic`` (the static
-launch model) is None until the slice that ports its consumer.  The
-built-in merge and row-split methods register here; the row-grouped
-method registers from ``rowgroup_spmm``, which ``repro_torch.kernels``
-imports.
+The spec keeps the reference's nine hooks: the planned and the
+plan-per-call (``inline``) paths, the autotuner (``tune_candidates``,
+``repro_torch.tune``) and ``traffic``, the method's CUDA launch models
+(``launch_models(plan, n, batch, var, card)`` beside each kernel,
+``repro_torch.kernels.introspect``), which the kernel audit, the
+coalescing proof and the bytes-moved analyzer of
+``repro_torch.analysis`` read.  The built-in merge and row-split methods
+register here; the row-grouped method registers from ``rowgroup_spmm``,
+which ``repro_torch.kernels`` imports.
 """
 from __future__ import annotations
 
@@ -45,7 +47,10 @@ class MethodSpec:
       executed with no cache (``spmm(plan="inline")``).
     * ``tune_candidates(a, wide) -> [dict]``: the static-parameter
       candidates the autotuner times (``wide`` sweeps more of them).
-    * ``traffic``: the reference's launch-model hook.
+    * ``traffic(plan, n, batch, var, card) -> [KernelLaunch]``: the
+      launches one ``execute`` issues (``var``: ``vals_dtype``,
+      ``b_dtype``, ``out_dtype``, ``epilogue``; ``card``: an
+      ``introspect.Card``).
     """
 
     name: str
@@ -185,7 +190,7 @@ register_method(MethodSpec(
     tune_candidates=_merge_candidates,
     # The paper's §5.4 rule as a cost: d below the threshold prefers merge.
     heuristic_rank=lambda a, h: h.mean_row_length(a) - h.threshold,
-    traffic=None,
+    traffic=_merge.launch_models,
 ))
 
 register_method(MethodSpec(
@@ -198,5 +203,5 @@ register_method(MethodSpec(
     resolve_params=_rowsplit_resolve,
     tune_candidates=_rowsplit_candidates,
     heuristic_rank=lambda a, h: h.threshold - h.mean_row_length(a),
-    traffic=None,
+    traffic=_rowsplit.launch_models,
 ))

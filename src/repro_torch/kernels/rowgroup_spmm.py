@@ -148,6 +148,69 @@ def rowgroup_execute_parts(groups_meta: tuple, fwd: dict,
     return out
 
 
+def launch_models(plan, n: int, batch: int, var, card) -> list:
+    """The row-grouped method's launches (``MethodSpec.traffic``), as
+    :func:`rowgroup_execute_parts` issues them: one row-split launch a
+    length bucket (``rowsplit_spmm.ell_launch``, its row parts by the
+    bucket's shape), then the PyTorch operations around them (symbol
+    None): the concatenation of two or more buckets' outputs, the
+    un-grouping gather (``index_select`` by ``inv_pos``) and, with a
+    flagged residual, its add and the one cast to the output dtype.  A
+    flagged residual never fuses into the buckets, which then write the
+    accumulator's dtype."""
+    from . import introspect as I
+    from .rowsplit_spmm import ell_launch
+    meta, ep = plan.meta, var.epilogue
+    residual = bool(ep and ep.residual)
+    odt = I.dtype_name(var.out_dtype or torch.promote_types(
+        getattr(torch, var.vals_dtype), getattr(torch, var.b_dtype)))
+    gdt = "float32" if residual else odt
+    if meta.m == 0 or meta.k == 0 or n == 0 or batch == 0:
+        return []
+    models = []
+    for i, ((m_g, _), gs) in enumerate(zip(meta.extra, plan.fwd["groups"])):
+        model = ell_launch(
+            f"rowgroup[g{i}]", gs, m=m_g, k=meta.k, nnz_pad=meta.nnz_pad,
+            n=n, batch=batch, vals_dtype=var.vals_dtype,
+            b_dtype=var.b_dtype, out_dtype=gdt, bias=bool(ep and ep.bias),
+            residual=False, card=card)
+        if model is not None:
+            models.append(model)
+    c = batch * meta.m * n
+    gb = I.nbytes(gdt) * c
+
+    def op(label, *operands):
+        return I.KernelLaunch(label=label, symbol=None, source=None,
+                              grid=(0, 0, 0), block=0, dynamic_smem=0,
+                              static_smem=0, min_blocks=0, body="torch",
+                              operands=operands)
+
+    shape = (batch, meta.m, n)
+    if len(meta.extra) > 1:
+        models.append(op("rowgroup concat (torch.cat)",
+                         I.OperandAccess("groups", gdt, shape, "in",
+                                         read_bytes=gb),
+                         I.OperandAccess("out", gdt, shape, "out",
+                                         write_bytes=gb)))
+    models.append(op("rowgroup un-group (index_select)",
+                     I.OperandAccess("inv_pos", "int32", (meta.m,), "in",
+                                     read_bytes=4 * meta.m),
+                     I.OperandAccess("grouped", gdt, shape, "in",
+                                     read_bytes=gb),
+                     I.OperandAccess("out", gdt, shape, "out",
+                                     write_bytes=gb)))
+    if residual:
+        rb = I.nbytes(var.b_dtype) * c
+        models.append(op("rowgroup residual (add, cast)",
+                         I.OperandAccess("c", gdt, shape, "in",
+                                         read_bytes=2 * gb),
+                         I.OperandAccess("residual", var.b_dtype, shape,
+                                         "in", read_bytes=rb),
+                         I.OperandAccess("out", odt, shape, "out",
+                                         write_bytes=gb + I.nbytes(odt) * c)))
+    return models
+
+
 # --------------------------------------------------- MethodSpec adapters ---
 
 
@@ -194,5 +257,5 @@ _registry.register_method(_registry.MethodSpec(
     resolve_params=_resolve,
     tune_candidates=lambda a, wide: [dict()],
     heuristic_rank=None,          # opt-in: explicit method= or TuneDB hits
-    traffic=None,
+    traffic=launch_models,
 ))

@@ -21,7 +21,9 @@
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch.core.csr import CSR
@@ -184,3 +186,169 @@ def rowsplit_spmm_cuda(structure: dict, vals: torch.Tensor,
     LAUNCHES += 1
     _cuda.count_launch(LAUNCHES_BY_BODY, body.value)
     return out
+
+
+# ------------------------------------------------------ the launch model ---
+
+# csrc/spmm_common.cuh kBlock, kWarpsPerBlock, kSliceCols (:34-36), and
+# csrc/rowsplit_spmm.cu kRowsplitBlocksPerSm (its __launch_bounds__) and
+# the `partial` array (float [kWarpsPerBlock][kSliceCols], static).
+K_BLOCK, K_WARPS_PER_BLOCK, K_SLICE_COLS = 256, 8, 128
+BLOCKS_PER_SM = 4
+SMEM_PARTIAL = 4 * K_WARPS_PER_BLOCK * K_SLICE_COLS
+
+
+def _ell_walk(slot_nz, m: int, l: int, nnz_pad: int, parts: int) -> dict:
+    """What the warps of one (batch, 128-column slice) issue, summed over
+    the rows and their parts, as ``rowsplit_kernel`` walks its groups of
+    32 slots: ``index`` the lanes that load a (col, slot_nz) pair (the
+    first group of a part, then the next group after each group walked),
+    ``gather`` the values gathered through slot_nz (the first group, then
+    the next group after each full one), ``live`` the B rows loaded (the
+    live slots of the groups walked: the walk ends at a part's first
+    group with no live slot, and after its first group with a dead
+    one)."""
+    groups = -(-l // 32)
+    live = np.zeros((m, groups * 32), bool)
+    live[:, :l] = slot_nz[:m] < nnz_pad
+    cnt = live.reshape(m, groups, 32).sum(2)
+    lanes_g = np.minimum(32, l - 32 * np.arange(groups))
+    full = cnt == 32
+    per_part = -(-groups // parts)            # rowsplit_spmm.cu per_part
+    rows = np.arange(m)
+    tot = dict(index=0, gather=0, live=0)
+    for p in range(parts):
+        gb, ge = p * per_part, min(groups, (p + 1) * per_part)
+        if ge <= gb:
+            continue
+        f = full[:, gb:ge]
+        wf = np.where(f.all(1), ge - gb, f.argmin(1))  # full groups walked
+        nxt = np.minimum(gb + wf, groups - 1)
+        walked = wf + ((gb + wf < ge) & (cnt[rows, nxt] > 0))
+        cum = np.concatenate([[0], np.cumsum(lanes_g[gb:ge])])
+        cc = np.concatenate([np.zeros((m, 1), np.int64),
+                             np.cumsum(cnt[:, gb:ge], 1)], 1)
+        tot["index"] += int(cum[np.minimum(walked + 1, ge - gb)].sum())
+        tot["gather"] += int(cc[rows, np.minimum(wf + 1, ge - gb)].sum())
+        tot["live"] += int(cc[rows, walked].sum())
+    return tot
+
+
+def ell_launch(label: str, structure: dict, *, m: int, k: int,
+               nnz_pad: int, n: int, batch: int, vals_dtype, b_dtype,
+               out_dtype, bias: bool, residual: bool, card):
+    """The model of one :func:`rowsplit_spmm_cuda` launch over the ELL
+    block ``structure`` (``cols``/``slot_nz`` (m_pad, l)), as its wrapper
+    and ``repro_rowsplit_spmm`` set it up; None where the wrapper's
+    caller returns before it (``ops._execute``'s m == 0, k == 0 or empty
+    B)."""
+    from . import introspect as I
+    if m == 0 or k == 0 or n == 0 or batch == 0:
+        return None
+    cols, slot_nz = I.host(structure["cols"]), I.host(structure["slot_nz"])
+    m_pad, l = slot_nz.shape
+    vdt, bdt, odt = (I.dtype_name(d) for d in (vals_dtype, b_dtype,
+                                                out_dtype))
+    vb, bb, ob = I.nbytes(vdt), I.nbytes(bdt), I.nbytes(odt)
+    parts = row_parts(m, n, l, batch, card.sms)   # rowsplit_spmm_cuda
+    body = _cuda.body_for(getattr(torch, bdt), n)  # pick_body, aligned
+    # repro_rowsplit_spmm: n_slices, warps and blocks (rowsplit_spmm.cu
+    # :210-212); it returns before the launch when blocks == 0.
+    n_slices = -(-n // K_SLICE_COLS)
+    warps = batch * m * n_slices * parts
+    blocks = -(-warps // K_WARPS_PER_BLOCK)
+    walk = _ell_walk(slot_nz, m, l, nnz_pad, parts)
+    live = slot_nz[:m] < nnz_pad
+    ops = [
+        I.OperandAccess("cols", "int32", (m_pad, l), "in",
+                        read_bytes=4 * n_slices * batch * walk["index"]),
+        I.OperandAccess("slot_nz", "int32", (m_pad, l), "in",
+                        read_bytes=4 * n_slices * batch * walk["index"]),
+        I.OperandAccess("vals", vdt, (nnz_pad,), "in",
+                        read_bytes=vb * n_slices * batch * walk["gather"]),
+        I.OperandAccess("b", bdt, (batch, k, n), "in",
+                        read_bytes=bb * n * batch * walk["live"]),
+        I.OperandAccess("out", odt, (batch, m, n), "out",
+                        write_bytes=ob * batch * m * n)]
+    if bias:       # one float32 a stored row slice (the wrapper casts)
+        ops.append(I.OperandAccess("bias", "float32", (m,), "in",
+                                   read_bytes=4 * batch * m * n_slices))
+    if residual:
+        ops.append(I.OperandAccess("residual", "float32", (batch, m, n),
+                                   "in", read_bytes=4 * batch * m * n))
+    ops = _with_lanes(ops, cols, slot_nz, live, l, n, body, vb, bb, ob)
+
+    def writers():
+        # An item a (batch, row, slice): whatever the parts, part 0's warp
+        # alone stores it (rowsplit_spmm.cu `if (part > 0) return;`), so
+        # the single writer is structural here.
+        return np.ones((batch, m, n_slices), np.int64)
+
+    def walks():
+        rows = np.broadcast_to(np.arange(m)[:, None], live.shape)
+        return [I.Walk("slot_nz along a row", rows[live],
+                       slot_nz[:m][live])]
+
+    def indices():
+        pos = np.broadcast_to(np.arange(l), live.shape)
+        first_dead = np.where(live.all(1), l, (~live).argmax(1))
+        return [
+            I.IndexStream("cols of live slots (B rows)", cols[:m][live], k),
+            I.IndexStream("slot_nz of live slots (vals)",
+                          slot_nz[:m][live], nnz_pad),
+            I.IndexStream("live slot before its row's first sentinel",
+                          pos[live], np.broadcast_to(
+                              first_dead[:, None], live.shape)[live])]
+
+    tv, tb, to = (I.CXX_TYPES[d] for d in (vdt, bdt, odt))
+    return I.KernelLaunch(
+        label=label, symbol=I.template(
+            "rowsplit_kernel", I.SPMM_BODY_CODES[body], tv, tb, to),
+        source="rowsplit_spmm.cu", grid=(blocks, 1, 1), block=K_BLOCK,
+        dynamic_smem=0, static_smem=I.static_smem(SMEM_PARTIAL),
+        min_blocks=BLOCKS_PER_SM,
+        body=body, operands=tuple(ops), in_dtypes=(vdt, bdt),
+        acc_dtype="float32", launched=blocks > 0, writers=writers,
+        walks=walks, indices=indices)
+
+
+def _with_lanes(ops, cols, slot_nz, live, l, n, body, vb, bb, ob):
+    """One warp's instructions for each operand: the warp of batch 0,
+    slice 0 and part 0 of the first row with a full group of 32 live
+    slots (else the first with a live slot), over its first group."""
+    from . import introspect as I
+    cnt0 = live[:, :32].sum(1)
+    pick = np.flatnonzero(cnt0 == min(32, l))
+    pick = pick if pick.size else np.flatnonzero(cnt0)
+    if not pick.size:
+        return ops
+    r = int(pick[0])
+    idx = I.WarpAccess("group load", (I.lanes(r * l * 4, 4, 4,
+                                              range(min(32, l))),))
+    slots = [int(s) for s in slot_nz[r, :32][live[r, :32]]]
+    gather = I.WarpAccess("gather", (tuple((s * vb, vb) for s in slots),))
+    c = [int(x) for x in cols[r, :2]]
+    brow = I.row_loads("B row", tuple(x * n * bb for x in c), n, bb, body)
+    by_name = {"cols": (idx,), "slot_nz": (idx,), "vals": (gather,),
+               "b": brow,
+               "out": I.row_steps("C row", r * n * ob, n, ob, body),
+               "residual": I.row_steps("residual row", r * n * 4, n, 4,
+                                       body),
+               "bias": (I.WarpAccess("bias", (((r * 4, 4),),)),)}
+    return [dataclasses.replace(o, warp=by_name[o.name]) for o in ops]
+
+
+def launch_models(plan, n: int, batch: int, var, card) -> list:
+    """The row-split method's launches (``MethodSpec.traffic``): one
+    :func:`rowsplit_spmm_cuda` launch over ``plan.fwd``.  ``var`` carries
+    ``vals_dtype``/``b_dtype``/``out_dtype``/``epilogue``; ``card`` the
+    SM count and limits (``introspect.card_of``)."""
+    meta, ep = plan.meta, var.epilogue
+    odt = var.out_dtype or torch.promote_types(
+        getattr(torch, var.vals_dtype), getattr(torch, var.b_dtype))
+    model = ell_launch("rowsplit", plan.fwd, m=meta.m, k=meta.k,
+                       nnz_pad=meta.nnz_pad, n=n, batch=batch,
+                       vals_dtype=var.vals_dtype, b_dtype=var.b_dtype,
+                       out_dtype=odt, bias=bool(ep and ep.bias),
+                       residual=bool(ep and ep.residual), card=card)
+    return [] if model is None else [model]

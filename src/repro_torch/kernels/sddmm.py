@@ -18,7 +18,9 @@ its schedule in tensor ops.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
+import numpy as np
 import torch
 
 from . import _cuda
@@ -84,3 +86,103 @@ def sddmm_cuda(rows: torch.Tensor, cols: torch.Tensor, valid: torch.Tensor,
     LAUNCHES += 1
     _cuda.count_launch(LAUNCHES_BY_BODY, body.value)
     return out
+
+
+# ------------------------------------------------------ the launch model ---
+
+# csrc/spmm_common.cuh kBlock, kWarpsPerBlock, kSliceCols (:34-36);
+# csrc/sddmm.cu kSddmmBlocksPerSm (its __launch_bounds__) and the static
+# arrays group_cols (int32 [8][32]) and red_all (float [8][32][33]).
+K_BLOCK, K_WARPS_PER_BLOCK, K_SLICE_COLS = 256, 8, 128
+BLOCKS_PER_SM = 2
+SMEM_ARRAYS = (4 * K_WARPS_PER_BLOCK * 32, 4 * K_WARPS_PER_BLOCK * 32 * 33)
+
+
+def launch_models(rows, cols, valid, *, m: int, k: int, n: int,
+                  batch: int, dc_dtype, b_dtype) -> list:
+    """The launch of one :func:`sddmm_cuda` call over the plan's
+    (nnz_pad,) coordinate streams, as the wrapper and ``repro_sddmm``
+    set it up (``sddmm.cu:239-252``); [] where none runs (``ops.sddmm``'s
+    early-out, an empty output, blocks == 0).
+
+    Requested bytes: every lane of every group loads (row, col, valid)
+    once (the next group prefetched inside a worker); each live nonzero
+    one b-row slice a slice; the dc slice of a row once a run of equal
+    rows (kept across groups while the row and the slice hold); one
+    float32 stored a slot."""
+    from . import introspect as I
+    rows, cols = I.host(rows), I.host(cols)
+    valid = I.host(valid).astype(bool)
+    nnz_pad = rows.shape[0]
+    if nnz_pad == 0 or m == 0 or k == 0 or n == 0 or batch == 0:
+        return []
+    ddt, bdt = I.dtype_name(dc_dtype), I.dtype_name(b_dtype)
+    db, bb = I.nbytes(ddt), I.nbytes(bdt)
+    # repro_sddmm: the body (vec_ok needs dc's dtype to be b's), groups,
+    # workers, warps and blocks (sddmm.cu :233-240).
+    body = _cuda.body_for(getattr(torch, bdt), n) if ddt == bdt \
+        else "scalar"
+    g = GROUPS_PER_WORKER
+    n_groups = -(-nnz_pad // 32)
+    workers = -(-n_groups // g)
+    blocks = -(-(batch * workers) // K_WARPS_PER_BLOCK)
+    n_slices = -(-n // K_SLICE_COLS)
+    p = np.flatnonzero(valid)
+    grp, worker = p // 32, p // (32 * g)
+    same_worker = np.r_[False, worker[1:] == worker[:-1]]
+    same_row = np.r_[False, rows[p][1:] == rows[p][:-1]]
+    same_grp = np.r_[False, grp[1:] == grp[:-1]]
+    # dc slices loaded a slice: one a row change while the row and the
+    # slice hold (n <= 128), else one a run of equal rows of a group.
+    keep = same_worker if n_slices == 1 else same_grp
+    dc_runs = int((~(keep & same_row)).sum())
+    ops = [
+        I.OperandAccess("rows", "int32", (nnz_pad,), "in",
+                        read_bytes=4 * batch * nnz_pad),
+        I.OperandAccess("cols", "int32", (nnz_pad,), "in",
+                        read_bytes=4 * batch * nnz_pad),
+        I.OperandAccess("valid", "uint8", (nnz_pad,), "in",
+                        read_bytes=batch * nnz_pad),
+        I.OperandAccess("dc", ddt, (batch, m, n), "in",
+                        read_bytes=db * n * batch * dc_runs),
+        I.OperandAccess("b", bdt, (batch, k, n), "in",
+                        read_bytes=bb * n * batch * p.size),
+        I.OperandAccess("out", "float32", (batch, nnz_pad), "out",
+                        write_bytes=4 * batch * nnz_pad)]
+    # Warp 0's first group: coalesced coordinate loads, the b rows of its
+    # first nonzero(s) (two half-warps on two in bf16x8), its dc row.
+    lanes32 = range(min(32, nnz_pad))
+    live0 = p[p < 32]
+    b_rows = tuple(int(cols[i]) * n * bb for i in
+                   (live0[:1].tolist() + live0[16:17].tolist()))
+    by_name = {
+        "rows": (I.WarpAccess("group load", (I.lanes(0, 4, 4, lanes32),)),),
+        "cols": (I.WarpAccess("group load", (I.lanes(0, 4, 4, lanes32),)),),
+        "valid": (I.WarpAccess("group load", (I.lanes(0, 1, 1, lanes32),)),),
+        "dc": I.row_loads("dc row", (int(rows[live0[0]]) * n * db,) * 2, n,
+                          db, body) if live0.size else (),
+        "b": I.row_loads("b row", b_rows, n, bb, body) if live0.size else (),
+        "out": (I.WarpAccess("dots", (I.lanes(0, 4, 4, lanes32),)),)}
+    ops = [dataclasses.replace(o, warp=by_name[o.name]) for o in ops]
+
+    def indices():
+        return [I.IndexStream("rows of live slots (dc rows)", rows[p], m),
+                I.IndexStream("cols of live slots (b rows)", cols[p], k)]
+
+    def writers():
+        # Lane j of a group's warp stores slot 32 grp + j (< nnz_pad).
+        return np.ones((batch, nnz_pad), np.int64)
+
+    def walks():
+        return [I.Walk("nonzeros along a worker", worker, p)]
+
+    td, tb = I.CXX_TYPES[ddt], I.CXX_TYPES[bdt]
+    return [I.KernelLaunch(
+        label="sddmm", symbol=I.template(
+            "sddmm_kernel", I.SPMM_BODY_CODES[body], td, tb),
+        source="sddmm.cu", grid=(blocks, 1, 1), block=K_BLOCK,
+        dynamic_smem=0, static_smem=I.static_smem(*SMEM_ARRAYS),
+        min_blocks=BLOCKS_PER_SM,
+        body=body, operands=tuple(ops), in_dtypes=(ddt, bdt),
+        launched=blocks > 0, writers=writers, walks=walks,
+        indices=indices)]

@@ -405,7 +405,7 @@ def test_cli_planlint_mini_on_cpu(tmp_path, capsys):
     assert cli.main(["all", "--device", "cpu", "--json", str(path)]) == 0
     rec = json.loads(path.read_text())
     assert rec["command"] == "all" and rec["exit"] == 0
-    assert set(rec["legs"]) == {"planlint"}
+    assert set(rec["legs"]) == {"lint", "planlint", "audit", "traffic"}
     assert set(rec["legs"]["planlint"]) == PAYLOAD_KEYS
 
 
