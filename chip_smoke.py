@@ -212,7 +212,29 @@ NVIDIA H100 (sm_90a) and the CUDA toolkit.  Phases, each timed:
               rate over its CUDA-event time; ``python -m
               repro_torch.analysis all`` on the card (lint, planlint,
               audit, ``traffic --check``, exit 0);
-12. summary — a ``kernels`` JSON line (each row with its roof fraction
+12. sharded — nnz-balanced sharded SpMM (``repro_torch.distributed.
+              spmm``): Llama-3.2-1B at full width, keep 0.25, batch 4 x
+              prompt 32, every pruned-FFN weight in 4 shards by rows, then
+              by cols, on the per-shard loop (each shard's methods and nnz
+              imbalance, launches a forward, warm forward host ms, device
+              busy and idle share beside the unsharded forward's, the
+              logits within the serving bars and at f32 within 2e-5, the
+              bits printed); layer 0's pruned FFN trained 5 SGD steps
+              through 2 shards by rows and by cols (SDDMM and merge-dB
+              launches, dvals and dB against the unsharded plans' at rtol
+              1e-4 / atol 1e-5 of the gradient's max); 2 ranks on the one card over gloo
+              (``spmd_child``: each layer-0 matrix by rows and cols,
+              forward and backward, the SPMD path against the loop path),
+              then ``torchrun --nproc-per-node 2 -m
+              repro_torch.launch.serve --prune-ffn 0.25 --mesh 2`` at full
+              width against the unsharded logits; the power law in 4 row
+              shards by the §5.4 rule (each shard's method, uniform,
+              device ms against unsharded row-split and merge, C against
+              the plain version and the unsharded merge C); an OLMoE-1B-7B MoE layer at
+              ``moe_groups`` 4 against its plain version and ``moe_groups``
+              0.  ``python3 chip_smoke.py --sharded-only`` runs the build
+              and this phase alone;
+13. summary — a ``kernels`` JSON line (each row with its roof fraction
               and its launch model), the card's name and power limit, and
               last the ``{"ok": true, ...}`` line.
 
@@ -435,6 +457,20 @@ KERNELS = {
         method=None, source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:33"),
 }
+
+# The kernel a plan method's forward launches (rowgroup: row-split's).
+KERNEL_OF = {"rowsplit": "rowsplit_spmm", "merge": "merge_spmm",
+             "rowgroup": "rowsplit_spmm"}
+
+
+def forward_launches(metas) -> collections.Counter:
+    """The kernel launches of one forward through plans of ``metas``: one
+    a plan, rowgroup's one a length bucket."""
+    want = collections.Counter()
+    for meta in metas:
+        want[KERNEL_OF[meta.method]] += (len(meta.extra) if meta.method ==
+                                         "rowgroup" else 1)
+    return want
 
 
 def phase(name):
@@ -1006,6 +1042,18 @@ def timing_power_law(dev, card) -> dict:
     return out
 
 
+def rowsplit_plain_blocked(fwd, vals, b, m):
+    """Row-split's plain version (``ref.rowsplit_execute_ref``) a block of
+    ELL rows at a time: its gather holds rows x slots x n floats (100 GB on
+    ``powlaw_65k_d32``, 400 GB on a 65,536-row shard of the power law)."""
+    from repro_torch.kernels import ref
+    slots = fwd["cols"].shape[1]
+    step = max(1, PLAIN_BLOCK_BYTES // (slots * b.shape[-1] * 4))
+    return torch.cat([ref.rowsplit_execute_ref(
+        {key: fwd[key][r:r + step] for key in ("cols", "slot_nz")}, vals, b,
+        min(step, m - r)) for r in range(0, m, step)])
+
+
 def tune(cfg, params, prompt, forced, dev, card, reset_counts,
          read_counts) -> dict:
     """The autotuner on the card, through ``repro_torch.tune``.
@@ -1055,7 +1103,7 @@ def tune(cfg, params, prompt, forced, dev, card, reset_counts,
                                   execute_plan, pattern_fingerprint,
                                   power_law_csr, prune_to_csr)
     from repro_torch.core.config import resolve_counts
-    from repro_torch.kernels import _cuda, ref, registry, rowsplit_spmm
+    from repro_torch.kernels import _cuda, registry, rowsplit_spmm
     from repro_torch.launch import serve
     from repro_torch.tune import TuneDB, timeit, tune_pattern, tune_suite
     from repro_torch.tune.timing import INNER
@@ -1065,8 +1113,6 @@ def tune(cfg, params, prompt, forced, dev, card, reset_counts,
     path = out_dir / "tune.json"
     db = TuneDB()
     print(f"TuneDB backend {db.backend!r}, written to {path}")
-    kernel_of = {"merge": "merge_spmm", "rowsplit": "rowsplit_spmm",
-                 "rowgroup": "rowsplit_spmm"}
     worst = {"merge_spmm": 0.0, "rowsplit_spmm": 0.0}
     library = {}
     # The tuner's kernel calls: what the wrappers count, what runs; and the
@@ -1081,8 +1127,8 @@ def tune(cfg, params, prompt, forced, dev, card, reset_counts,
                            .resolve(a).extra) if method == "rowgroup" else 1
             calls = per_call * len(registry.get_method(method)
                                    .tune_candidates(a, True))
-            counted[kernel_of[method]] += calls * (1 + INNER)
-            ran[kernel_of[method]] += calls * (
+            counted[KERNEL_OF[method]] += calls * (1 + INNER)
+            ran[KERNEL_OF[method]] += calls * (
                 1 + (TUNE_WARMUP + TUNE_REPEAT) * INNER)
 
     def plain(method, plan, vals, b, m):
@@ -1091,11 +1137,7 @@ def tune(cfg, params, prompt, forced, dev, card, reset_counts,
         ``powlaw_65k_d32``)."""
         if method != "rowsplit":
             return execute_plan(plan, vals, b, ExecutionConfig(impl="torch"))
-        slots = plan.fwd["cols"].shape[1]
-        step = max(1, PLAIN_BLOCK_BYTES // (slots * b.shape[-1] * 4))
-        return torch.cat([ref.rowsplit_execute_ref(
-            {key: plan.fwd[key][r:r + step] for key in ("cols", "slot_nz")},
-            vals, b, min(step, m - r)) for r in range(0, m, step)])
+        return rowsplit_plain_blocked(plan.fwd, vals, b, m)
 
     def hold(a, n, what):
         """Each method's kernel at every candidate the tuner times on ``a``
@@ -1119,7 +1161,7 @@ def tune(cfg, params, prompt, forced, dev, card, reset_counts,
                 err, _ = check_close(f"tune parity {method}{params} {what}",
                                      got, want, tol)
                 errs[method] = max(errs.get(method, 0.0), err)
-                worst[kernel_of[method]] = max(worst[kernel_of[method]], err)
+                worst[KERNEL_OF[method]] = max(worst[KERNEL_OF[method]], err)
                 del plan, got, want
                 torch.cuda.empty_cache()
         after = read_counts()
@@ -1152,7 +1194,7 @@ def tune(cfg, params, prompt, forced, dev, card, reset_counts,
         for method in registry.method_names():
             plan = build_plan(a, PlanPolicy(method=method,
                                             with_transpose=False))
-            kname = kernel_of[method]
+            kname = KERNEL_OF[method]
             before = read_counts()[kname]
             got = execute_plan(plan, a.vals, b, ExecutionConfig(impl="cuda"))
             launched = read_counts()[kname] - before
@@ -1326,7 +1368,7 @@ def tune(cfg, params, prompt, forced, dev, card, reset_counts,
         per_forward = {"rowsplit_spmm": 0, "merge_spmm": 0}
         for plan in picks.values():
             method = plan.meta.method
-            per_forward[kernel_of[method]] += \
+            per_forward[KERNEL_OF[method]] += \
                 len(plan.meta.extra) if method == "rowgroup" else 1
         want = {name: 2 * per_forward.get(name, 0) for name in counts}
         print(f"serve with the TuneDB ({run}): plan_resolve_total {rungs}; "
@@ -4216,6 +4258,551 @@ def run_analysis(lib_path, roof_gb_s: float) -> dict:
         return json.load(f)
 
 
+# ------------------------------------------------------------- sharded --
+
+# The sharded phase (repro_torch.distributed.spmm): the serving cell's
+# pruned FFNs in SHARD_N nnz-balanced shards by rows and by cols on the
+# loop path; the power law in SHARD_N row shards; layer 0's pruned FFN
+# trained through GRAD_SHARDS shards; the SPMD path in SPMD_RANKS ranks
+# sharing the card over gloo; an OLMoE-1B-7B MoE layer at MOE_GROUPS.
+SHARD_N, GRAD_SHARDS, SPMD_RANKS, MOE_GROUPS = 4, 2, 2, 4
+# The f32-compute forwards, sharded against unsharded: the kernels' f32
+# bar (the shards sum a row's or a column block's products in other
+# orders).
+SHARD_F32_TOL = dict(rtol=2e-5, atol=2e-5)
+# Sharded against unsharded gradients, and the SPMD ranks against the
+# loop path: the reference's gradient bar (tests/test_spmm_grad.py:23),
+# rtol 1e-4 and atol 1e-5 at unit scale, so here atol 1e-5 of the
+# gradient's largest |value| (at least 1): an entry is an f32 sum of up
+# to 8192 products in another order (dB through the shards' transpose
+# plans summed, the cotangents behind it), and where those products
+# cancel, its error stays at their scale, not the entry's (the first card
+# run's cols dvals of w1: 34 of 4.19 M entries 3.1e-5 off at |dvals| <=
+# 39).
+SHARD_GRAD_TOL = dict(rtol=1e-4, atol_of_max=1e-5)
+# A rendezvous, a collective or a rank that has not ended by then fails
+# the phase instead of eating the script's clock.
+SPMD_INIT_S, SPMD_JOIN_S, TORCHRUN_S = 120, 300, 420
+
+
+def grad_tol(want) -> dict:
+    """SHARD_GRAD_TOL with its atol at ``want``'s scale."""
+    return dict(rtol=SHARD_GRAD_TOL["rtol"], atol=SHARD_GRAD_TOL[
+        "atol_of_max"] * max(want.abs().max().item(), 1.0))
+
+
+def shard_summary(plan) -> tuple:
+    """(per-shard methods, nnz imbalance max/mean) of a sharded plan."""
+    meta = plan.meta
+    nnz = [int((s < meta.nnz_pad).sum()) for s in plan.vals_slots]
+    mean = sum(nnz) / len(nnz)
+    return ([lm.method for lm in meta.local_metas],
+            max(nnz) / mean if mean else 1.0)
+
+
+def sharded_llama(cfg, params, prompt, dev, card, reset_counts,
+                  read_counts) -> dict:
+    """Llama-3.2-1B at full width (16 layers), keep 0.25, batch 4 x prompt
+    32: ``serve_pruned`` with every pruned-FFN weight in SHARD_N shards by
+    rows, then by cols, on the per-shard loop (every shard's kernel on the
+    one card), against the unsharded forward in the same call; the same
+    three at f32 compute."""
+    from repro_torch.core import PlanPolicy, ShardSpec
+    from repro_torch.launch import serve
+    fwd = serve.make_pruned_forward(cfg)
+    base = serve.prune_ffn_blocks(params, cfg, KEEP)
+
+    def forward(blocks):
+        def run():
+            with torch.no_grad():
+                return fwd(params, blocks, prompt)
+        return run
+
+    flat = forward(base)()
+    flat_host = host_ms(forward(base))
+    flat_busy = profile_device(forward(base), top=0)
+    print(f"sharded: unsharded forward {flat_host:.2f} ms host, device busy "
+          f"{flat_busy:.3f} ms (idle share {1 - flat_busy / flat_host:.3f}); "
+          f"{card}")
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    with torch.no_grad():
+        flat32 = serve.make_pruned_forward(cfg32)(params, base, prompt)
+    out = {"launches": collections.Counter(), "logits": flat}
+    for dim in ("rows", "cols"):
+        policy = PlanPolicy(shards=ShardSpec(n=SHARD_N, dim=dim))
+        reset_counts()
+        rep = serve.serve_pruned(cfg, params, prompt, KEEP, policy=policy)
+        counts = read_counts()
+        out["launches"].update(counts)
+        blocks = serve.prune_ffn_blocks(params, cfg, KEEP, policy)
+        mixes, worst_imb = collections.Counter(), 0.0
+        for li, blk in enumerate(blocks):
+            parts = []
+            for name, sl in blk["mlp"].items():
+                methods, imb = shard_summary(sl.plan)
+                mixes[tuple(methods)] += 1
+                worst_imb = max(worst_imb, imb)
+                parts.append(f"{name} {'/'.join(methods)} imbalance "
+                             f"{imb:.4f}")
+            print(f"sharded {dim} layer {li:2d}: " + "; ".join(parts))
+        per_forward = {k: v // 2 for k, v in counts.items() if v}
+        metas = [sl.plan.meta for blk in blocks for sl in blk["mlp"].values()]
+        want = forward_launches(lm for meta in metas
+                                for lm in meta.local_metas)
+        host = host_ms(forward(blocks))
+        busy = profile_device(forward(blocks), top=4)
+        with torch.no_grad():
+            got32 = serve.make_pruned_forward(cfg32)(params, blocks, prompt)
+        d32, r32 = check_close(f"sharded {dim} f32 logits vs unsharded",
+                               got32, flat32, SHARD_F32_TOL)
+        same = torch.equal(rep.logits, flat)
+        print(f"sharded {dim} x {SHARD_N} loop: shard methods "
+              f"{dict(mixes)} over {3 * len(blocks)} matrices, worst nnz "
+              f"imbalance {worst_imb:.4f}; launches a forward {per_forward} "
+              f"(over {sum(per_forward.values())}; unsharded 48); plans built "
+              f"while serving {rep.replans}; warm forward {host:.2f} ms host "
+              f"(unsharded {flat_host:.2f}), device busy {busy:.3f} ms "
+              f"(unsharded {flat_busy:.3f}), idle share "
+              f"{1 - busy / host:.3f}; f32 logits vs unsharded max |d| "
+              f"{d32:.3e} (tol rtol {SHARD_F32_TOL['rtol']} atol "
+              f"{SHARD_F32_TOL['atol']}; worst ratio {r32:.3f}); bf16 logits "
+              f"the unsharded bits: {same}; {card}")
+        serve_gap(f"sharded {dim} logits vs unsharded", rep.logits, flat)
+        # Two forwards (cold, warm), each every shard's kernel of every
+        # matrix, SHARD_N shards a matrix.
+        if rep.replans or any(len(m.local_metas) != SHARD_N for m in metas) \
+                or {k: v for k, v in counts.items() if v} != {
+                    k: 2 * v for k, v in want.items() if v}:
+            raise AssertionError(
+                f"sharded {dim}: {rep.replans} plans built while serving, "
+                f"shards a matrix {sorted({len(m.local_metas) for m in metas})}"
+                f", launches {dict(counts)} for 2 forwards of {dict(want)}")
+        out[dim] = dict(host_ms=host, busy_ms=busy, per_forward=per_forward,
+                        imbalance=worst_imb, f32_max_abs=d32,
+                        bf16_bits_equal=same)
+        del blocks, rep, got32
+    out.update(unsharded_host_ms=flat_host, unsharded_busy_ms=flat_busy)
+    del base, flat32
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_power_law(dev, card) -> dict:
+    """The timing phase's 262,144^2 power law in SHARD_N row shards, by the
+    §5.4 rule with no TuneDB: each shard's method, whether the plan is
+    uniform, its device ms against the unsharded row-split and merge (one
+    call), each shard's kernel alone, and C against the plain version."""
+    from repro_torch.core import (ExecutionConfig, PlanPolicy, ShardSpec,
+                                  build_plan, power_law_csr)
+    from repro_torch.distributed.spmm import build_sharded_plan
+    from repro_torch.kernels import ops, rowsplit_spmm
+    seed, m, d, alpha = (POWER_LAW[x] for x in ("seed", "m", "d", "alpha"))
+    n = SERVE_BATCH * SERVE_PROMPT
+    a = power_law_csr(seed, m, m, d, alpha=alpha, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(50)
+    b = torch.randn(m, n, generator=gen, device=dev)
+    flat, flat_c = {}, {}
+    for method in ("rowsplit", "merge"):
+        plan = build_plan(a, PlanPolicy(method=method, with_transpose=False))
+        kern = getattr(ops, f"{method}_execute")
+        flat[method] = time_ms(lambda: kern(plan.fwd, a.vals, b, m=m,
+                                            impl="cuda"), reps=5, inner=5)
+        with torch.no_grad():   # the unsharded C, to hold the sharding to
+            flat_c[method] = kern(plan.fwd, a.vals, b, m=m, impl="cuda")
+        del plan
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    plan = build_sharded_plan(a, PlanPolicy(
+        tunedb=None, with_transpose=False, shards=ShardSpec(n=SHARD_N)))
+    plan_s = time.perf_counter() - t0
+    methods, imb = shard_summary(plan)
+    if set(methods) != {"rowsplit"}:
+        raise AssertionError(f"sharded power law: shards {methods}; the "
+                             "check below holds row-split shards only")
+    with torch.no_grad():
+        before = rowsplit_spmm.LAUNCHES
+        got = plan.execute(a.vals, b, ExecutionConfig(impl="cuda"))
+        ran = rowsplit_spmm.LAUNCHES - before
+        # The plain version of the loop path, each shard's row-split plain
+        # version a block of rows at a time (one call would gather 400 GB).
+        vals_ext = torch.cat([a.vals, a.vals.new_zeros(1)])
+        want = torch.cat([
+            rowsplit_plain_blocked(p.fwd, vals_ext[slot.long()], b,
+                                   lm.m)[:hi - lo]
+            for p, slot, lm, lo, hi in zip(
+                plan.shards, plan.vals_slots, plan.meta.local_metas,
+                plan.meta.bounds, plan.meta.bounds[1:])])
+    torch.cuda.synchronize()
+    tol = dict(rtol=POWER_LAW_TOL["rtol"], atol=POWER_LAW_TOL["atol_of_max"]
+               * want.abs().max().item())
+    err, _ = check_close("sharded power law vs its plain version", got, want,
+                         tol)
+    # The plain version above follows the plan's own cuts and slots; the
+    # unsharded merge C (each kernel held to its plain version earlier)
+    # does not, so a wrong cut, slot or row offset fails here.
+    err_flat, _ = check_close("sharded power law vs unsharded merge", got,
+                              flat_c["merge"], tol)
+    same_rowsplit = torch.equal(got, flat_c["rowsplit"])
+    del got, want, flat_c
+    ms = time_ms(lambda: plan.execute(a.vals, b), reps=5, inner=5)
+    shard_ms = []
+    for p, slot, lm in zip(plan.shards, plan.vals_slots,
+                           plan.meta.local_metas):
+        lv = torch.cat([a.vals, a.vals.new_zeros(1)])[slot.long()]
+        kern = getattr(ops, f"{lm.method}_execute")
+        shard_ms.append(time_ms(lambda p=p, lv=lv, lm=lm: kern(
+            p.fwd, lv, b, m=lm.m, impl="cuda"), reps=5, inner=5))
+    print(f"sharded power law {m} x {m} (nnz {a.nnz()}) in {SHARD_N} row "
+          f"shards by the §5.4 rule, no TuneDB: methods {methods}, uniform "
+          f"{plan.meta.uniform}, bounds {plan.meta.bounds}, nnz imbalance "
+          f"{imb:.4f}, l_pad {plan.meta.l_pad} (plan {plan_s:.1f} s); "
+          f"{ran} row-split launches a call; device {ms:.4f} ms a call "
+          f"(shards' kernels alone {', '.join(f'{x:.4f}' for x in shard_ms)}"
+          f" ms) against unsharded row-split {flat['rowsplit']:.4f} ms and "
+          f"merge {flat['merge']:.4f} ms; C vs its plain version max |d| "
+          f"{err:.3e}, vs the unsharded merge C {err_flat:.3e} (tol rtol "
+          f"{tol['rtol']} atol {tol['atol']:.3e}), the unsharded row-split "
+          f"C's bits: {same_rowsplit}; {card}")
+    out = dict(methods=methods, uniform=plan.meta.uniform, imbalance=imb,
+               ms=ms, shard_ms=shard_ms, unsharded_rowsplit_ms=flat[
+                   "rowsplit"], unsharded_merge_ms=flat["merge"],
+               max_abs_err=err, max_abs_err_unsharded=err_flat,
+               launches=ran)
+    del plan, a, b
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_grads(cfg, mlp, dev, card, reset_counts, read_counts) -> dict:
+    """Layer 0's pruned FFN at full width, TRAIN_STEPS SGD steps on the
+    values through GRAD_SHARDS shards by rows and by cols (the training
+    phase's x, target and lr), and the first step's dvals and dB (of x)
+    against the unsharded plans' at the reference's gradient bar."""
+    import torch.nn.functional as F
+
+    from repro_torch.core import PlanPolicy, ShardSpec
+    from repro_torch.models import sparse as S
+    from repro_torch.runtime import steps
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    x = torch.randn(SERVE_BATCH, SERVE_PROMPT, cfg.d_model, generator=gen,
+                    device=dev)
+    y = (F.silu(x @ mlp["w1"]) * (x @ mlp["w3"])) @ mlp["w2"]
+    flat = S.prune_mlp(mlp, KEEP)
+
+    def grads(layers):
+        vals = {k: v.detach().requires_grad_(True)
+                for k, v in S.mlp_vals(layers).items()}
+        xx = x.detach().requires_grad_(True)
+        pred = S.sparse_mlp_apply(S.mlp_with_vals(layers, vals), xx, None)
+        # A sum, not the step's mean: gradients at O(1), where the
+        # reference's atol 1e-5 means something.
+        loss = ((pred - y) ** 2).sum()
+        g = torch.autograd.grad(loss, [*vals.values(), xx])
+        return dict(zip([*vals, "dB(x)"], g))
+
+    want = grads(flat)
+    out = {"launches": collections.Counter()}
+    worst = 0.0
+    for dim in ("rows", "cols"):
+        layers = {k: sl.shard(n=GRAD_SHARDS, dim=dim)
+                  for k, sl in flat.items()}
+        step, vals = steps.make_sparse_train_step(layers, lr=LR)
+        reset_counts()
+        losses = []
+        for _ in range(TRAIN_STEPS):
+            vals, loss = step(vals, x, y)
+            losses.append(loss.item())
+        counts = read_counts()
+        out["launches"].update(counts)
+        per_step = {k: v / TRAIN_STEPS for k, v in counts.items() if v}
+        got = grads(layers)
+        torch.cuda.synchronize()
+        gaps = {}
+        for name in want:
+            d, _ = check_close(f"sharded {dim} {name}", got[name],
+                               want[name], grad_tol(want[name]))
+            # Entries outside the bar at unit scale (atol 1e-5 as is).
+            over = int((~torch.isclose(got[name], want[name],
+                                       rtol=SHARD_GRAD_TOL["rtol"],
+                                       atol=SHARD_GRAD_TOL["atol_of_max"])
+                        ).sum())
+            gaps[name] = (f"{d:.3e} of max {want[name].abs().max().item():.3e}"
+                          f" ({over} outside atol 1e-5 unscaled)")
+            worst = max(worst, d)
+        print(f"sharded grads {dim} x {GRAD_SHARDS}: losses "
+              + ", ".join(f"{v:.6f}" for v in losses)
+              + f"; launches a step {per_step} (the forward SpMM and "
+              f"the SDDMM of each of {3 * GRAD_SHARDS} shards, merge dB of "
+              f"w2's {GRAD_SHARDS}); "
+              f"the sum-of-squares loss's gradients vs unsharded max |d| "
+              + ", ".join(f"{k} {v}" for k, v in gaps.items())
+              + f" (tol rtol {SHARD_GRAD_TOL['rtol']} atol "
+              f"{SHARD_GRAD_TOL['atol_of_max']} of max); {card}")
+        # A step: each shard's forward SpMM by its method, an SDDMM a shard
+        # (dvals), and w2's dB (its B, the hidden activation, needs one;
+        # x none) on each of its shards' transpose plans, by merge.
+        want_step = collections.Counter(sddmm=3 * GRAD_SHARDS,
+                                        merge_spmm=GRAD_SHARDS)
+        for sl in layers.values():
+            for lm in sl.plan.meta.local_metas:
+                want_step[KERNEL_OF[lm.method]] += 1
+        if per_step != dict(want_step) or \
+                not all(b < a for a, b in zip(losses, losses[1:])):
+            raise AssertionError(f"sharded grads {dim}: launches {per_step}"
+                                 f", losses {losses}")
+        del layers, step, vals
+    out["worst"] = worst
+    return out
+
+
+def spmd_child() -> int:
+    """One rank of the SPMD check (``python3 -c``; argv: rank, world, the
+    rendezvous file, layer 0's FFN weights, the output directory): on
+    ``cuda:0`` shared with the other ranks over gloo, each pruned matrix
+    sharded by rows and by cols over a ``("data",)`` mesh of the ranks,
+    forward and backward through the SPMD path (this rank's shard) and the
+    loop path (every shard here), compared."""
+    import datetime
+
+    import torch.distributed as dist
+    rank, world, store, weights, out_dir = sys.argv[1:6]
+    rank, world = int(rank), int(world)
+    sys.path.insert(0, SRC)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.core import (ExecutionConfig, PlanPolicy, ShardSpec,
+                                  prune_to_csr)
+    from repro_torch.distributed import spmm as dspmm
+    from repro_torch.engine import get_plan
+    from repro_torch.kernels import merge_spmm, rowsplit_spmm, sddmm
+    from repro_torch.launch.mesh import make_mesh
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{store}", rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=SPMD_INIT_S))
+    mesh = make_mesh((world,), ("data",), "cuda")
+    mods = {"rowsplit_spmm": rowsplit_spmm, "merge_spmm": merge_spmm,
+            "sddmm": sddmm}
+    res = {"backend": str(dist.get_backend()), "cases": []}
+    n = SERVE_BATCH * SERVE_PROMPT
+    for name, w in torch.load(weights, map_location=dev).items():
+        a = prune_to_csr(w.T, KEEP)            # as SparseLinear.from_dense
+        m, k = a.shape
+        for dim in ("rows", "cols"):
+            spmd = get_plan(a, PlanPolicy(shards=ShardSpec(
+                mesh=mesh, axis="data", dim=dim)))
+            loop = get_plan(a, PlanPolicy(shards=ShardSpec(n=world,
+                                                           dim=dim)))
+            g = torch.Generator(device=dev).manual_seed(60)
+            b = torch.randn(k, n, generator=g, device=dev)
+            wgt = torch.randn(m, n, generator=g, device=dev)
+
+            def run(plan):
+                vals = a.vals.clone().requires_grad_(True)
+                bb = b.clone().requires_grad_(True)
+                before = {key: mod.LAUNCHES for key, mod in mods.items()}
+                c = dspmm.execute_sharded(plan, vals, bb,
+                                          ExecutionConfig(impl="cuda"))
+                (c * wgt).sum().backward()
+                torch.cuda.synchronize()
+                ran = {key: mod.LAUNCHES - before[key]
+                       for key, mod in mods.items()}
+                return (c.detach(), vals.grad, bb.grad), ran
+
+            got, ran = run(spmd)
+            want, _ = run(loop)
+            case = dict(matrix=name, dim=dim, shape=[m, k],
+                        spmd=spmd.meta.spmd_mesh() is not None,
+                        methods=[lm.method for lm in spmd.meta.local_metas],
+                        launches=ran)
+            for what, x, y in zip(("C", "dvals", "dB"), got, want):
+                tol = TOL["float32"] if what == "C" else grad_tol(y)
+                case[what] = dict(
+                    bits=bool(torch.equal(x, y)),
+                    max_abs=(x - y).abs().max().item(),
+                    ok=bool(torch.allclose(x, y, **tol)))
+            res["cases"].append(case)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w",
+              encoding="utf-8") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+    return 0
+
+
+
+def sharded_spmd(cfg, mlp, logits, dev, card) -> dict:
+    """SPMD_RANKS processes on the one card over gloo (the library already
+    built: the ranks load it): ``spmd_child`` on layer 0's pruned FFN,
+    then ``torchrun -m repro_torch.launch.serve --prune-ffn 0.25 --mesh
+    SPMD_RANKS`` at full width, its logits against ``logits`` (the
+    unsharded forward, same params and prompt).  Ranks sharing a card
+    measure correctness, not scaling."""
+    from repro_torch.kernels import _cuda
+    out_dir = _cuda.BUILD_DIR / "sharded"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    weights = out_dir / "layer0_ffn.pt"
+    torch.save({k: w.detach().cpu() for k, w in mlp.items()}, weights)
+    code = (f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke; "
+            "sys.exit(chip_smoke.spmd_child())")
+    sys.stdout.flush()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code, str(r), str(SPMD_RANKS),
+         str(out_dir / "store"), str(weights), str(out_dir)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(SPMD_RANKS)]
+    logs = []
+    try:
+        for p in procs:
+            left = max(1.0, t0 + SPMD_JOIN_S - time.perf_counter())
+            logs.append(p.communicate(timeout=left)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode:
+            raise AssertionError(f"SPMD rank {r} exited {p.returncode}:\n"
+                                 f"{log[-4000:]}")
+    ranks_s = time.perf_counter() - t0
+    bad = []
+    for r in range(SPMD_RANKS):
+        with open(out_dir / f"rank{r}.json", encoding="utf-8") as f:
+            res = json.load(f)
+        for c in res["cases"]:
+            gaps = ", ".join(
+                f"{w} bits" if c[w]["bits"]
+                else f"{w} max |d| {c[w]['max_abs']:.3e}"
+                for w in ("C", "dvals", "dB"))
+            print(f"spmd rank {r}/{SPMD_RANKS} ({res['backend']}) "
+                  f"{c['matrix']} {tuple(c['shape'])} {c['dim']}: SPMD path "
+                  f"{c['spmd']}, shards {c['methods']}, this rank's launches "
+                  f"{c['launches']}; vs the loop path: {gaps}")
+            if not c["spmd"] or not all(c[w]["ok"] for w in ("C", "dvals",
+                                                               "dB")):
+                bad.append((r, c["matrix"], c["dim"]))
+    if bad:
+        raise AssertionError(f"SPMD ranks disagree with the loop path: {bad}")
+    path = out_dir / "logits.pt"
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [SRC] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc-per-node", str(SPMD_RANKS), "-m",
+            "repro_torch.launch.serve", "--arch", cfg.name, "--prune-ffn",
+            str(KEEP), "--mesh", str(SPMD_RANKS), "--device", "cuda",
+            "--logits-out", str(path)]
+    t1 = time.perf_counter()
+    proc = subprocess.run(argv, capture_output=True, text=True, env=env,
+                          timeout=TORCHRUN_S, check=False)
+    run_s = time.perf_counter() - t1
+    tail = [ln for ln in proc.stdout.splitlines() if ln.startswith(
+        ("[serve]", "pruned-FFN"))]
+    print(f"$ torchrun --nproc-per-node {SPMD_RANKS} -m "
+          f"repro_torch.launch.serve --arch {cfg.name} --prune-ffn {KEEP} "
+          f"--mesh {SPMD_RANKS} --device cuda  (exit {proc.returncode}, "
+          f"{run_s:.1f} s)")
+    for ln in tail:
+        print(f"  {ln}")
+    if proc.returncode:
+        raise AssertionError(f"torchrun serve --mesh exited "
+                             f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+    got = torch.load(path).to(dev)
+    serve_gap(f"torchrun serve --mesh {SPMD_RANKS} logits vs unsharded",
+              got, logits)
+    same = torch.equal(got, logits)
+    print(f"torchrun serve --mesh {SPMD_RANKS}: logits the unsharded bits: "
+          f"{same}; ranks' check {ranks_s:.1f} s; {card}")
+    return dict(backend=res["backend"], ranks_s=ranks_s, serve_s=run_s,
+                serve_bits_equal=same)
+
+
+def sharded_moe(dev, card, read_counts) -> dict:
+    """An OLMoE-1B-7B MoE layer (published widths, bf16 compute, weights
+    from a seed) on batch 4 x prompt 32 tokens at ``moe_groups`` =
+    MOE_GROUPS: the grouped GEMM kernel against its plain version, and
+    against ``moe_groups`` = 0 where no expert overflows."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config("olmoe-1b-7b")
+    cfg_g = dataclasses.replace(cfg, moe_groups=MOE_GROUPS)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    p = moe.init_moe(gen, cfg)
+    x = torch.randn(SERVE_BATCH, SERVE_PROMPT, cfg.d_model, generator=gen,
+                    device=dev).to(cfg.cdtype)
+    with torch.no_grad():
+        before = read_counts()["moe_gemm"]
+        got, aux = moe.moe_apply(p, x, cfg_g)
+        ran = read_counts()["moe_gemm"] - before
+        want, _ = moe.moe_apply(p, x, cfg_g, impl="torch")
+        flat, _ = moe.moe_apply(p, x, cfg)
+        _, experts, _ = moe.route(p, x.reshape(-1, cfg.d_model), cfg)
+    torch.cuda.synchronize()
+    tol = MOE_TOL["bfloat16"]
+    d, r = check_close(f"moe_groups={MOE_GROUPS} kernel vs plain", got, want,
+                       tol)
+    counts = moe._expert_counts(experts, cfg.num_experts)
+    t = SERVE_BATCH * SERVE_PROMPT
+    cap = moe.TT * max(1, -(-int(t * cfg.top_k * 1.25) //
+                            (cfg.num_experts * moe.TT)))
+    fits = int(counts.max()) <= cap
+    dg, _ = check_close(f"moe_groups={MOE_GROUPS} vs ungrouped", got, flat,
+                        tol) if fits else (float("nan"), None)
+    print(f"sharded moe {cfg.name} layer (d {cfg.d_model}, ff {cfg.d_ff}, "
+          f"{cfg.num_experts} experts top-{cfg.top_k}, bf16) on "
+          f"{SERVE_BATCH} x {SERVE_PROMPT} tokens, moe_groups {MOE_GROUPS}: "
+          f"{ran} grouped GEMM launches (the groups folded into one a "
+          f"weight); kernel vs plain max |d| {d:.3e} (tol rtol {tol['rtol']}"
+          f" atol {tol['atol']}; worst ratio {r:.3f}); vs moe_groups 0 "
+          f"(busiest expert {int(counts.max())} of capacity {cap}: no "
+          f"overflow {fits}) max |d| {dg:.3e}; aux {aux.item():.6f}; {card}")
+    if ran != 3 or not fits:
+        raise AssertionError(f"moe_groups: {ran} launches (want 3), "
+                             f"busiest expert {int(counts.max())} of {cap}")
+    return dict(launches=ran, max_abs=d, vs_ungrouped=dg)
+
+
+def sharded(dev, card, reset_counts, read_counts) -> dict:
+    """The sharded phase: returns the main path's launches by kernel (the
+    Llama forwards' and the sharded training steps' in this process, the
+    MoE layer's kernel run; not the SPMD ranks' nor the comparisons'), the
+    worst kernel-vs-plain errors and what it measured."""
+    from repro_torch.configs import get_config
+    from repro_torch.engine import clear_cache
+    from repro_torch.models import model as M
+    clear_cache()
+    torch.cuda.empty_cache()
+    cfg = get_config("llama3.2-1b")
+    params = M.init_params(cfg, SEED, dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    prompt = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                           generator=g, device=dev)
+    print(f"sharded: {cfg.name} {cfg.num_layers} layers, keep {KEEP}, batch "
+          f"{SERVE_BATCH} x prompt {SERVE_PROMPT}, seed {SEED}")
+    llama = sharded_llama(cfg, params, prompt, dev, card, reset_counts,
+                          read_counts)
+    launches = collections.Counter(llama.pop("launches"))
+    mlp = params["blocks"][0]["mlp"]
+    clear_cache()
+    grads = sharded_grads(cfg, mlp, dev, card, reset_counts, read_counts)
+    launches.update(grads.pop("launches"))
+    spmd = sharded_spmd(cfg, mlp, llama.pop("logits"), dev, card)
+    del params, mlp
+    clear_cache()
+    torch.cuda.empty_cache()
+    power = sharded_power_law(dev, card)
+    mo = sharded_moe(dev, card, read_counts)
+    launches["moe_gemm"] += mo["launches"]
+    clear_cache()
+    torch.cuda.empty_cache()
+    return dict(launches=dict(launches), llama=llama, grads=grads,
+                spmd=spmd, power_law=power, moe=mo,
+                worst={"rowsplit_spmm": power["max_abs_err"],
+                       "moe_gemm": mo["max_abs"]})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -4264,6 +4851,14 @@ def main() -> int:
     print(f"library: {lib_path}")
     print_ptxas(log.getvalue())
     done("build", t0)
+    if sys.argv[1:] == ["--sharded-only"]:
+        # A quick check of the sharded phase alone (no kernels line).
+        t0 = phase("sharded")
+        shard = sharded(dev, card, reset_counts, read_counts)
+        done("sharded", t0)
+        print(json.dumps({k: shard[k] for k in ("launches", "worst")}))
+        print(gpu_line())
+        return 0
 
     def llama_matrix(name, seed):
         m, k = LLAMA_FFN[name]
@@ -4642,6 +5237,13 @@ def main() -> int:
     modeled = run_analysis(lib_path, observed["roofline"]["roof_gb_s"])
     done("analysis", t0)
 
+    # ---------------------------------------------------------- sharded --
+    t0 = phase("sharded")
+    shard = sharded(dev, card, reset_counts, read_counts)
+    for name, err in shard["worst"].items():
+        worst[name] = max(worst[name], err)
+    done("sharded", t0)
+
     # ---------------------------------------------------------- summary --
     rows = []
     for kname, kspec in KERNELS.items():
@@ -4658,7 +5260,8 @@ def main() -> int:
                     "archs": arch["launches"].get(kname, 0),
                     "obs": observed["serving"]["launches"][kname]
                     + (observed["online"]["launches"]
-                       if kname == "rowsplit_spmm" else 0)}
+                       if kname == "rowsplit_spmm" else 0),
+                    "sharded": shard["launches"].get(kname, 0)}
         row = {
             "name": kname, "route": "cuda", "source": kspec["source"],
             "replaces": kspec["replaces"],
@@ -4678,6 +5281,8 @@ def main() -> int:
             row["power_law"] = power_law
         if kname == "rowsplit_spmm":
             row["online"] = served_online
+            row["sharded"] = {k: shard[k] for k in ("llama", "power_law",
+                                                    "spmd")}
         if kname in ("merge_spmm", "rowsplit_spmm"):
             row["tune"] = {k: tuned[k] for k in (
                 "threshold", "threshold_accuracy", "paper_accuracy",
@@ -4723,7 +5328,12 @@ def main() -> int:
           f"generate, {MIXTRAL_GEN + 1} forwards); "
           "the obs phase's traced serve_pruned run (2 forwards by "
           "row-split, 96) and traced online run (counted as the online "
-          "run); roof_fraction: the compulsory bytes of ms "
+          "run); the sharded phase's Llama runs (2 forwards each of rows "
+          f"and cols in {SHARD_N} shards, the per-shard loop), its "
+          f"{TRAIN_STEPS} training steps of each dim in {GRAD_SHARDS} "
+          f"shards and its moe_groups={MOE_GROUPS} layer (the SPMD ranks' "
+          "launches are printed, not counted); roof_fraction: the "
+          "compulsory bytes of ms "
           "(the reference's roofline models) over ms, as a fraction of the "
           "card's measured copy-scale roof, roof_bound_ms those bytes at "
           "that roof (bound_ms takes the data sheet's 3.35 TB/s and the "

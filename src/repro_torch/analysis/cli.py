@@ -6,7 +6,8 @@
     # regenerate the committed traffic baseline after an intended change
     python -m repro_torch.analysis traffic --update --device cpu
 
-* ``planlint`` -- build a plan per registered method for every matrix in
+* ``planlint`` -- build a plan per registered method, and a two-shard
+  plan by rows and by cols (``verify_sharded_plan``), for every matrix in
   a suite (``repro_torch.matrices``), on the device, and run the full
   structural linter over each; a corrupt planner fails here before any
   kernel would read the structure.
@@ -25,8 +26,7 @@ Every leg takes ``--device`` (default ``cuda``: plans are built and the
 card's limits read there; ``cpu`` uses the committed H100 SXM table) and
 ``--json PATH``, the reference's machine-readable report (``{"command",
 "exit", "diagnostics": [{code, where, message}], ...}``); ``all --json``
-nests the per-leg payloads.  The reference's sharded-plan legs wait for
-the port's sharding slice.  Exit status is non-zero iff a leg found
+nests the per-leg payloads.  Exit status is non-zero iff a leg found
 anything.
 """
 from __future__ import annotations
@@ -66,10 +66,12 @@ def _repo_root() -> str:
 
 def run_planlint(suite: str = "mini", out=None, *, device="cuda",
                  json_path=None, payload=None) -> int:
-    """Self-check: verify every (suite matrix x registered method) plan."""
+    """Self-check: verify every (suite matrix x registered method) plan,
+    and each matrix's two-shard plans by rows and by cols."""
     from repro_torch.analysis import planlint
-    from repro_torch.core.config import PlanPolicy
+    from repro_torch.core.config import PlanPolicy, ShardSpec
     from repro_torch.core.plan import build_plan
+    from repro_torch.distributed.spmm import build_sharded_plan
     from repro_torch.kernels import registry
     from repro_torch.matrices.suites import get_suite
 
@@ -85,6 +87,16 @@ def run_planlint(suite: str = "mini", out=None, *, device="cuda",
                 all_diags.extend(diags)
                 print(format_diagnostics(
                     diags, header=f"{spec.name} × {method}:"), file=out)
+        for dim in ("rows", "cols"):
+            plan = build_sharded_plan(
+                a, PlanPolicy(shards=ShardSpec(n=2, dim=dim)))
+            diags = planlint.verify_sharded_plan(plan, a)
+            checked += 1
+            if diags:
+                all_diags.extend(diags)
+                print(format_diagnostics(
+                    diags, header=f"{spec.name} × sharded/{dim}:"),
+                    file=out)
     print(f"planlint: {checked} plan(s) verified on suite {suite!r} "
           f"({device}), {len(all_diags)} finding(s)", file=out)
     rc = 1 if all_diags else 0

@@ -1,5 +1,5 @@
 """Host-side structural verification of the port's SpMM plans (the
-reference's ``repro.analysis.planlint``, its codes P001-P060 with their
+reference's ``repro.analysis.planlint``, its codes P001-P074 with their
 meanings).
 
 The paper's correctness argument is *structural*: the merge decomposition
@@ -24,13 +24,16 @@ reference's (``kernels/merge_spmm.py``), so the checks are the same:
   valid inverse permutation;
 * every static (``PlanMeta``, ``extra``) is hashable.
 
-Entry points: :func:`verify_plan` returns a ``Diagnostic`` list (empty =
-clean); :func:`check_plan` raises :class:`PlanVerificationError` on
+Entry points: :func:`verify_plan` (:func:`verify` dispatches on the plan
+type) returns a ``Diagnostic`` list (empty = clean); :func:`check_plan`
+raises :class:`PlanVerificationError` on
 findings.  All checks run on host numpy copies (``.cpu().numpy()``) of the
 plan's tensors, so a plan on the card costs one device-to-host copy of its
-arrays: never call it inside a CUDA graph capture.  The reference's
-sharded-plan checks (``verify_sharded_plan``, P070-P074) wait for the
-port's sharding slice.
+arrays: never call it inside a CUDA graph capture.
+:func:`verify_sharded_plan` checks a ``ShardedSpmmPlan`` (P070-P074):
+bounds that tile the span, one plan and gather a shard, the uniform flag,
+exactly-once value coverage, the cols B-row gathers, and, given the CSR,
+that each shard holds exactly its bounds' range of it.
 
 Wired as the opt-in debug hook behind ``REPRO_VERIFY_PLANS=1``
 (``repro_torch.analysis._flags``) in ``core.plan.build_plan`` and
@@ -476,8 +479,156 @@ def verify_plan(plan, a=None) -> list:
     return diags
 
 
+def _shard_pattern(shard) -> tuple[np.ndarray, np.ndarray]:
+    """A shard plan's live (row, col) coordinates, in its slot order."""
+    fwd = shard.fwd
+    valid = _np(fwd.get("nz_valid", np.zeros(0, bool))).astype(bool)
+    return _np(fwd["nz_rows"])[valid], _np(fwd["nz_cols"])[valid]
+
+
+def _check_shard_ranges(plan, a, bounds, diags: list) -> None:
+    """P070/P072 against the CSR itself: shard ``i`` must hold exactly the
+    nonzeroes of its bounds' range.  Rows: its local ``row_ptr`` (from the
+    shard plan's coordinates) is ``a.row_ptr[b_i:b_{i+1}+1] - a.row_ptr[
+    b_i]`` with empty rows past it, its columns are the range's, and its
+    live ``vals_slots`` are ``range(rp[b_i], rp[b_{i+1}])``; cols: the
+    same over the CSC view (the range's nonzeroes in row-major order, at
+    their rows and shard-local columns).  Bounds that still tile ``[0,
+    span]`` but cut elsewhere than the shards do fail here."""
+    meta = plan.meta
+    rp = _np(a.row_ptr).astype(np.int64)
+    nnz = int(rp[-1])
+    ci = _np(a.col_ind)[:nnz].astype(np.int64)
+    rows_all = np.repeat(np.arange(meta.m, dtype=np.int64), np.diff(rp))
+    for i, (shard, slot) in enumerate(zip(plan.shards, plan.vals_slots)):
+        lo, hi = int(bounds[i]), int(bounds[i + 1])
+        sl = _np(slot)
+        live = sl[sl != meta.nnz_pad].astype(np.int64)
+        if meta.dim == "rows":
+            want = np.arange(rp[lo], rp[hi])
+            want_rows = rows_all[rp[lo]:rp[hi]] - lo
+        else:
+            want = np.nonzero((ci >= lo) & (ci < hi))[0]
+            want_rows = rows_all[want]
+        if not np.array_equal(live, want):
+            diags.append(Diagnostic(
+                "P072", f"plan.vals_slots[{i}]",
+                f"gathers {live.size} value(s) {_head(live)} but "
+                f"{meta.dim} [{lo}, {hi}) hold the global nonzeroes "
+                f"{_head(want)} ({want.size})"))
+        rows, cols = _shard_pattern(shard)
+        want_cols = ci[want] - (lo if meta.dim == "cols" else 0)
+        if not (np.array_equal(rows, want_rows)
+                and np.array_equal(cols, want_cols)):
+            diags.append(Diagnostic(
+                "P070", f"plan.meta.bounds[{i}:{i + 2}]",
+                f"shard {i}'s pattern is not the nonzeroes of {meta.dim} "
+                f"[{lo}, {hi}) of the CSR: the bounds cut elsewhere than "
+                "the shards were built, so assembly would misplace rows"))
+
+
+def verify_sharded_plan(plan, a=None) -> list:
+    """Verify a ``ShardedSpmmPlan`` (P070-P074): shard layout, per-shard
+    plans, the global value-gather coverage, the cols B-row gathers and,
+    given the CSR ``a``, that each shard holds exactly its bounds' range
+    of ``a`` (bounds that tile the span but disagree with the shards, the
+    reference's one miss, come back as P070/P072)."""
+    diags: list = []
+    meta = plan.meta
+    _check_hashable(meta, "plan.meta", diags)
+    m, k = meta.shape
+    n = meta.n_shards
+    span = m if meta.dim == "rows" else k
+    bounds = np.asarray(meta.bounds, np.int64)
+    if (bounds.shape != (n + 1,) or bounds[0] != 0 or bounds[-1] != span
+            or np.any(np.diff(bounds) < 0)):
+        diags.append(Diagnostic(
+            "P070", "plan.meta.bounds",
+            f"bounds {tuple(bounds)} do not tile [0, {span}] into "
+            f"{n} monotone {meta.dim} ranges"))
+        return diags
+    if len(plan.shards) != n or len(plan.vals_slots) != n:
+        diags.append(Diagnostic(
+            "P071", "plan.shards",
+            f"{len(plan.shards)} shard plan(s) / "
+            f"{len(plan.vals_slots)} value gather(s) for {n} bound(s)"))
+        return diags
+    if meta.uniform and any(lm != meta.local_metas[0]
+                            for lm in meta.local_metas):
+        diags.append(Diagnostic(
+            "P073", "plan.meta.uniform",
+            "uniform=True but local metas differ: the SPMD path would run "
+            "the wrong statics on some shards"))
+    covered: list = []
+    for i, (shard, slot) in enumerate(zip(plan.shards, plan.vals_slots)):
+        lm = meta.local_metas[i]
+        if shard.meta != lm:
+            diags.append(Diagnostic(
+                "P071", f"plan.shards[{i}].meta",
+                "shard plan meta disagrees with meta.local_metas"))
+        size = int(bounds[i + 1] - bounds[i])
+        lm_span = lm.shape[0] if meta.dim == "rows" else lm.shape[1]
+        other = lm.shape[1] if meta.dim == "rows" else lm.shape[0]
+        want_other = k if meta.dim == "rows" else m
+        if lm_span < size or other != want_other:
+            diags.append(Diagnostic(
+                "P071", f"plan.shards[{i}].meta.shape",
+                f"local shape {lm.shape} cannot hold {meta.dim} range "
+                f"[{bounds[i]}, {bounds[i + 1]}) of global {meta.shape}"))
+        sl = _np(slot)
+        live = sl[sl != meta.nnz_pad]
+        covered.append(live)
+        for d in verify_plan(shard):
+            diags.append(Diagnostic(
+                d.code, f"shard[{i}].{d.where}", d.message))
+        local_valid = _np(shard.fwd.get("nz_valid", np.zeros(0, bool)))
+        if int(local_valid.sum()) != live.size:
+            diags.append(Diagnostic(
+                "P072", f"plan.vals_slots[{i}]",
+                f"gathers {live.size} live value(s) but the shard plan "
+                f"holds {int(local_valid.sum())} nonzero(es)"))
+    ids = np.concatenate(covered) if covered else np.zeros(0, np.int64)
+    nnz = int(_np(a.row_ptr)[-1]) if a is not None else ids.size
+    _check_coverage(
+        [("vals_slots", ids)], nnz, meta.nnz_pad, "plan.vals_slots", diags)
+    if meta.dim == "cols":
+        if plan.b_rows is None or len(plan.b_rows) != n:
+            diags.append(Diagnostic(
+                "P074", "plan.b_rows",
+                "cols-dim plan without one B row gather per shard"))
+        else:
+            for i in range(n):
+                br = _np(plan.b_rows[i])
+                size = int(bounds[i + 1] - bounds[i])
+                want = np.full(br.shape[0], k, np.int64)
+                want[:size] = np.arange(bounds[i], bounds[i + 1])
+                if not np.array_equal(br, want):
+                    diags.append(Diagnostic(
+                        "P074", f"plan.b_rows[{i}]",
+                        f"B row gather does not select columns "
+                        f"[{bounds[i]}, {bounds[i + 1]}) (sentinel {k})"))
+    if a is not None:
+        n_csr = len(diags)
+        verify_csr(a, diags)
+        if a.shape != meta.shape or a.nnz_pad != meta.nnz_pad:
+            diags.append(Diagnostic(
+                "P003", "plan.meta",
+                f"sharded plan is for shape {meta.shape} / nnz_pad "
+                f"{meta.nnz_pad}, CSR is {a.shape} / {a.nnz_pad}"))
+        if len(diags) == n_csr:
+            _check_shard_ranges(plan, a, bounds, diags)
+    return diags
+
+
+def verify(plan, a=None) -> list:
+    """Dispatch on plan type (``SpmmPlan`` vs ``ShardedSpmmPlan``)."""
+    if hasattr(plan, "shards"):
+        return verify_sharded_plan(plan, a)
+    return verify_plan(plan, a)
+
+
 def check_plan(plan, a=None) -> None:
     """Raise :class:`PlanVerificationError` if ``plan`` has findings."""
-    diags = verify_plan(plan, a)
+    diags = verify(plan, a)
     if diags:
         raise PlanVerificationError(diags)

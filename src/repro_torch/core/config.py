@@ -6,6 +6,8 @@
   kernel parameters (``t``, ``tl``, ``l_pad``), and whether to build the
   transpose plan.  :meth:`PlanPolicy.resolve` is the single choke point
   every plan request funnels through.
+  ``shards`` (a :class:`ShardSpec`) asks for a device-sharded plan
+  instead (``repro_torch.distributed.spmm``).
 * :class:`ExecutionConfig` — per call: which implementation runs
   (``"cuda"``: the hand-written kernels; ``"torch"``: their plain
   versions; ``None``: by the operands' device), the fused
@@ -81,6 +83,77 @@ class _DefaultTuneDB:
 DEFAULT_TUNEDB = _DefaultTuneDB()
 
 
+def mesh_axes(mesh) -> tuple[str, ...]:
+    """The dim names of a ``torch.distributed.device_mesh.DeviceMesh``."""
+    return tuple(mesh.mesh_dim_names or ())
+
+
+def mesh_axis_size(mesh, axis: str) -> int:
+    """The size of ``mesh``'s dim named ``axis``."""
+    return mesh.size(mesh_axes(mesh).index(axis))
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardSpec:
+    """How to shard an SpMM over devices (``PlanPolicy.shards``).
+
+    ``n`` is the shard count (the mesh dim's size when a mesh is given);
+    ``dim`` picks the nnz-balanced cut direction: ``"rows"`` (data
+    parallel: a row block a shard, C the row concatenation) or ``"cols"``
+    (tensor parallel: a column slice of A against a row block of B a
+    shard, partial sums all-reduced).  ``axis`` defaults to ``"data"``
+    for rows and ``"model"`` for cols.  ``mesh`` (a
+    ``torch.distributed.device_mesh.DeviceMesh`` with named dims) is
+    optional: without one, execution runs the per-shard loop on whatever
+    device holds the data; with one whose ``axis`` size is ``n`` and an
+    initialised process group, a uniform plan runs one shard a rank.
+    Hashable (``DeviceMesh`` hashes by its layout, device type and dim
+    names): a ShardSpec is part of the engine's plan-cache key.
+    """
+
+    n: int | None = None
+    dim: str = "rows"
+    axis: str | None = None        # default: "data" (rows) / "model"
+    mesh: Any = None               # DeviceMesh | None
+
+    def __post_init__(self):
+        if self.dim not in ("rows", "cols"):
+            raise ValueError(
+                f"ShardSpec.dim must be 'rows' or 'cols', got {self.dim!r}")
+        if self.n is None and self.mesh is None:
+            raise ValueError("ShardSpec needs n= (shard count) or mesh=")
+        if self.n is not None and self.n < 1:
+            raise ValueError(f"ShardSpec.n must be >= 1, got {self.n}")
+        if self.axis is None:
+            object.__setattr__(
+                self, "axis", "model" if self.dim == "cols" else "data")
+        if self.mesh is not None:
+            if self.axis not in mesh_axes(self.mesh):
+                raise ValueError(
+                    f"ShardSpec axis {self.axis!r} is not an axis of the "
+                    f"mesh (axes: {mesh_axes(self.mesh)})")
+            axis_size = mesh_axis_size(self.mesh, self.axis)
+            if self.n is not None and self.n != axis_size:
+                raise ValueError(
+                    f"ShardSpec n={self.n} conflicts with mesh axis "
+                    f"{self.axis!r} of size {axis_size}; drop n= to take "
+                    "the axis size, or pass a matching mesh")
+
+    def resolved_n(self) -> int:
+        return self.n if self.n is not None else \
+            mesh_axis_size(self.mesh, self.axis)
+
+
+def _as_shard_spec(shards) -> ShardSpec | None:
+    if shards is None or isinstance(shards, ShardSpec):
+        return shards
+    if isinstance(shards, int):
+        return ShardSpec(n=shards)
+    raise TypeError(
+        f"PlanPolicy.shards must be a ShardSpec, an int shard count, or "
+        f"None; got {type(shards).__name__}")
+
+
 class ResolvedPlan(NamedTuple):
     """A fully pinned-down plan request (every static decision made)."""
 
@@ -111,6 +184,10 @@ class PlanPolicy:
     heuristic: Heuristic | None = None
     tunedb: Any = DEFAULT_TUNEDB    # TuneDB | None (opt out) | default
     with_transpose: bool = True     # build the backward (CSC) plan
+    shards: ShardSpec | None = None  # device sharding (int = n shards)
+
+    def __post_init__(self):
+        object.__setattr__(self, "shards", _as_shard_spec(self.shards))
 
     @classmethod
     def from_meta(cls, meta) -> PlanPolicy:
@@ -133,6 +210,13 @@ class PlanPolicy:
         """
         from repro_torch.kernels import registry
 
+        if self.shards is not None:
+            raise ValueError(
+                "PlanPolicy.resolve() pins down the statics of ONE "
+                "pattern; a sharded policy resolves per shard — each "
+                "shard's local stats pick its own method — inside "
+                "repro_torch.distributed.spmm.build_sharded_plan (or via "
+                "engine.get_plan, which dispatches on shards=).")
         method, t, l_pad = self.method, self.t, self.l_pad
         heuristic = self.heuristic
         tunedb = self.resolved_tunedb()

@@ -6,6 +6,7 @@ execution plan:
     A = SparseMatrix.from_dense(w)            # or .prune(w, keep)
     C = A @ B                                 # plans via the engine cache
     A = A.plan(PlanPolicy(method="merge"))    # pin the plan explicitly
+    A = A.shard(n=4, dim="rows")              # nnz-balanced shards
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ class SparseMatrix:
     """CSR pattern + values + (lazily attached) execution plan."""
 
     data: CSR
-    spmm_plan: SpmmPlan | None = None
+    spmm_plan: SpmmPlan | None = None   # or a ShardedSpmmPlan
 
     def __post_init__(self):
         p = self.spmm_plan
@@ -82,12 +83,52 @@ class SparseMatrix:
     def plan_like(self, meta) -> SparseMatrix:
         """Re-plan replaying an existing plan's full statics; if a
         pattern-derived parameter no longer fits this pattern (a row grew
-        past the old pad), keep the method alone and re-derive the rest."""
+        past the old pad), keep the method alone and re-derive the rest.
+        A sharded plan's meta replays its layout (count, dim, axis, mesh)
+        and, when uniform, its shards' method and statics."""
+        if hasattr(meta, "local_metas"):   # sharded plan: replay the layout
+            from .config import ShardSpec
+            spec = ShardSpec(n=meta.n_shards, dim=meta.dim, axis=meta.axis,
+                             mesh=meta.mesh)
+            if meta.uniform:
+                lm = meta.local_metas[0]
+                try:
+                    return self.plan(PlanPolicy(
+                        method=lm.method, t=lm.t, tl=lm.tl, l_pad=lm.l_pad,
+                        with_transpose=lm.has_transpose, shards=spec))
+                except ValueError:
+                    pass
+            return self.plan(PlanPolicy(
+                shards=spec, with_transpose=meta.has_transpose))
         try:
             return self.plan(PlanPolicy.from_meta(meta))
         except ValueError:
             return self.plan(PlanPolicy(
                 method=meta.method, with_transpose=meta.has_transpose))
+
+    def shard(self, mesh=None, *, n: int | None = None, dim: str = "rows",
+              axis: str | None = None,
+              policy: PlanPolicy | None = None) -> SparseMatrix:
+        """Attach a device-sharded plan: nnz-balanced shards, one local
+        plan a shard (``repro_torch.distributed.spmm``).
+
+        ``mesh`` (a ``torch.distributed.device_mesh.DeviceMesh``) lets a
+        uniform plan run one shard a rank over ``axis`` (``"data"`` for
+        row shards, ``"model"`` for the tensor-parallel column shards)
+        once a process group is up; without one, ``n`` logical shards run
+        as a per-shard loop, numerically identical.  ``policy`` pins the
+        per-shard plan requests (method, params, TuneDB); each shard still
+        resolves "auto" on its own local stats.
+        """
+        from .config import ShardSpec
+        spec = ShardSpec(n=n, dim=dim, axis=axis, mesh=mesh)
+        base = policy if policy is not None else PlanPolicy()
+        if base.shards is not None:
+            raise ValueError(
+                "SparseMatrix.shard: pass the shard layout via "
+                "mesh/n/dim/axis, not inside policy.shards — the two "
+                "spellings cannot be mixed")
+        return self.plan(dataclasses.replace(base, shards=spec))
 
     # --------------------------------------------------------- execution ---
 
@@ -101,6 +142,10 @@ class SparseMatrix:
         if plan is None:
             from repro_torch.engine import get_plan
             plan = get_plan(self.data)
+        if not isinstance(plan, SpmmPlan):     # device-sharded plan
+            from repro_torch.distributed.spmm import execute_sharded
+            return execute_sharded(plan, self.data.vals, b, exec, bias=bias,
+                                   residual=residual)
         return execute_plan(plan, self.data.vals, b, exec, bias=bias,
                             residual=residual)
 

@@ -318,11 +318,48 @@ def _check_plan_overrides(plan: SpmmPlan, policy: PlanPolicy) -> None:
         want = getattr(policy, name)
         if want is not None and want != getattr(meta, name):
             conflicts.append(f"{name}={want} (plan: {getattr(meta, name)})")
+    if policy.shards is not None:
+        conflicts.append(f"shards={policy.shards} (plan: unsharded — build "
+                         "a sharded plan via engine.get_plan or "
+                         "SparseMatrix.shard)")
     if conflicts:
         raise ValueError(
             "spmm() overrides conflict with the supplied plan's static "
             "decisions: " + "; ".join(conflicts) + ". Rebuild the plan with "
             "these parameters or drop the overrides.")
+
+
+def _check_sharded_overrides(plan, policy: PlanPolicy) -> None:
+    """Raise on an explicit policy contradicting a sharded plan's statics."""
+    meta = plan.meta
+    conflicts = []
+    if policy.shards is not None:
+        spec = policy.shards
+        if spec.resolved_n() != meta.n_shards:
+            conflicts.append(f"shards n={spec.resolved_n()} "
+                             f"(plan: {meta.n_shards})")
+        if spec.dim != meta.dim:
+            conflicts.append(f"shards dim={spec.dim!r} (plan: {meta.dim!r})")
+    if policy.method != "auto":
+        mismatched = sorted({lm.method for lm in meta.local_metas
+                             if lm.method != policy.method})
+        if mismatched:
+            conflicts.append(f"method={policy.method!r} (plan shards use "
+                             f"{mismatched})")
+    for name in ("t", "tl", "l_pad"):
+        want = getattr(policy, name)
+        if want is None:
+            continue
+        got = sorted({getattr(lm, name) for lm in meta.local_metas},
+                     key=lambda x: (x is None, x))
+        if got != [want]:
+            conflicts.append(f"{name}={want} (plan shards: {got})")
+    if conflicts:
+        raise ValueError(
+            "spmm() overrides conflict with the supplied sharded plan's "
+            "static decisions: " + "; ".join(conflicts) + ". Rebuild the "
+            "sharded plan with these parameters (engine.get_plan with a "
+            "shards= policy) or drop the overrides.")
 
 
 def spmm(a: CSR, b: torch.Tensor, policy: PlanPolicy | None = None,
@@ -336,8 +373,8 @@ def spmm(a: CSR, b: torch.Tensor, policy: PlanPolicy | None = None,
     ``policy`` holds every pattern-static decision and ``exec`` the
     per-call backend knobs.  Dispatch on ``plan``:
 
-    * an ``SpmmPlan`` -- execute it (an explicit ``policy`` must agree
-      with it);
+    * an ``SpmmPlan`` or a ``ShardedSpmmPlan`` -- execute it (an
+      explicit ``policy`` must agree with it);
     * ``None`` (default) -- the pattern's plan from the engine cache, then
       execute it, so repeated calls with the same pattern never replan;
     * ``"inline"`` -- the paper's per-call regime: the method's ``inline``
@@ -354,16 +391,26 @@ def spmm(a: CSR, b: torch.Tensor, policy: PlanPolicy | None = None,
     elif plan is None:
         from repro_torch.engine import get_plan
         plan = get_plan(a, policy)
-    elif plan == "inline":
+    elif isinstance(plan, str) and plan == "inline":
         return _spmm_inline(a, b, policy, exec, bias, residual)
+    elif hasattr(plan, "shards"):              # a ShardedSpmmPlan
+        _check_sharded_overrides(plan, policy)
     else:
-        raise ValueError(f"plan must be an SpmmPlan, None or 'inline'; "
-                         f"got {plan!r}")
+        raise ValueError(f"plan must be an SpmmPlan, a ShardedSpmmPlan, "
+                         f"None or 'inline'; got {plan!r}")
+    if not isinstance(plan, SpmmPlan):
+        return plan.execute(a.vals, b, exec, bias=bias, residual=residual)
     return execute_plan(plan, a.vals, b, exec, bias=bias, residual=residual)
 
 
 def _spmm_inline(a: CSR, b, policy: PlanPolicy, exec, bias, residual):
     """``spmm(plan="inline")``: resolve, plan and execute in one call."""
+    if policy.shards is not None:
+        raise ValueError(
+            "the inline (plan-per-call) spmm path cannot shard: sharding "
+            "is a host-side plan decision. Build the sharded plan first "
+            "(repro_torch.engine.get_plan with a shards= policy, or "
+            "SparseMatrix.shard) and pass it as plan=.")
     if b.dim() != 2:
         raise ValueError(
             "the inline (plan-per-call) spmm path takes a 2-D B; batched "

@@ -1,4 +1,8 @@
-"""Distributed helpers of the port: the fault-tolerance hooks of the
+"""Distributed parts of the port: nnz-balanced sharded SpMM plans
+(``repro_torch.distributed.spmm``: the per-shard loop and one shard a rank
+over ``torch.distributed``) and the fault-tolerance hooks of the
 reference's ``repro.distributed.fault`` (preemption, stragglers, step
-timing, retry).  Sharded plans and the rest of ``repro.distributed`` come
-with the sharding slice."""
+timing, retry).  The model-parallel half of ``repro.distributed`` —
+parameter, batch and cache placement over a 2-D mesh (``sharding.py``)
+and re-sharding a training state (``elastic.py``) — comes with the next
+slice of the port."""

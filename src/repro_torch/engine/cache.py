@@ -16,6 +16,9 @@ attribute view.  Callers assert against them that a hot path built no
 plan.  While tracing is on, ``cache.hit`` / ``cache.miss`` /
 ``cache.eviction`` events and a ``plan.build`` span land in the trace;
 ``REPRO_VERIFY_PLANS=1`` re-verifies every plan served from the cache.
+A request with ``PlanPolicy.shards`` set gets a ``ShardedSpmmPlan``
+(``repro_torch.distributed.spmm``): one entry keyed on the global pattern
+and the shard spec, each shard's plan an entry of its own.
 
 Swapping the process-default TuneDB (:func:`set_tunedb`) can never serve a
 plan resolved against the old one: an "auto" request's raw key holds the
@@ -95,6 +98,17 @@ def load_tunedb(path, **kw):
     return db
 
 
+def _heuristic_key(policy: PlanPolicy):
+    """What an "auto" request's method depends on beyond the pattern: the
+    heuristic's threshold and the TuneDB's content digest."""
+    if policy.method != "auto":
+        return None
+    db = policy.resolved_tunedb()
+    return (policy.heuristic.threshold
+            if policy.heuristic is not None else None,
+            db.digest() if db is not None else None)
+
+
 @dataclasses.dataclass
 class CacheStats:
     hits: int = 0
@@ -153,8 +167,11 @@ class PlanCache:
             _verify_hit(plan, a)
         return plan
 
-    def get(self, a: CSR, policy: PlanPolicy | None = None) -> SpmmPlan:
+    def get(self, a: CSR, policy: PlanPolicy | None = None):
         """Cached ``build_plan``: the engine's plan-once entry point.
+
+        With ``policy.shards`` set, the cached ``ShardedSpmmPlan``
+        (:meth:`_get_sharded`).
 
         Canonical keys pin down the static decisions through the same
         ``PlanPolicy.resolve`` that ``build_plan`` uses, so "auto" and its
@@ -164,13 +181,9 @@ class PlanCache:
         (the fingerprint itself is memoized per CSR object).
         """
         policy = policy if policy is not None else PlanPolicy()
-        if policy.method == "auto":
-            db = policy.resolved_tunedb()
-            hkey = (policy.heuristic.threshold
-                    if policy.heuristic is not None else None,
-                    db.digest() if db is not None else None)
-        else:
-            hkey = None
+        if policy.shards is not None:
+            return self._get_sharded(a, policy)
+        hkey = _heuristic_key(policy)
         fp, device = pattern_fingerprint(a), str(a.device)
         raw = (fp, a.shape, a.nnz_pad, device, policy.method, hkey,
                policy.t, policy.tl, policy.l_pad, policy.with_transpose)
@@ -204,17 +217,65 @@ class PlanCache:
             self._entries[key] = plan
             self._entries.move_to_end(key)
             self._alias_insert(raw, key)
-            while len(self._entries) > self.maxsize:
-                evicted, _ = self._entries.popitem(last=False)
-                self._aliases = OrderedDict(
-                    (r, c) for r, c in self._aliases.items() if c != evicted)
-                self._c_evict.inc()
-                if _trace._enabled:
-                    _trace.event("cache.eviction", cat="cache",
-                                 cache=self.name)
+            self._evict_over()
             self._g_size.set(len(self._entries))
             self._g_aliases.set(len(self._aliases))
         return plan
+
+    def _get_sharded(self, a: CSR, policy: PlanPolicy):
+        """Cached sharded-plan build (``policy.shards`` set).
+
+        The sharded plan is one entry keyed on the *global* pattern plus
+        the whole shard spec (count, dim, axis, mesh), while every
+        per-shard local plan lands as its own entry keyed on the shard's
+        fingerprint (``build_sharded_plan`` funnels them back through
+        :meth:`get`, into the same LRU).  Because the spec is in the key,
+        re-sharding the same matrix with another count or mesh builds a
+        sibling entry: it can never poison, nor be served from, the other.
+        """
+        spec = policy.shards
+        key = (pattern_fingerprint(a), a.shape, a.nnz_pad, str(a.device),
+               "sharded", spec.resolved_n(), spec.dim, spec.axis, spec.mesh,
+               policy.method, _heuristic_key(policy), policy.t, policy.tl,
+               policy.l_pad, policy.with_transpose)
+        with self._lock:
+            plan = self._entries.get(key)
+            if plan is not None:
+                self._entries.move_to_end(key)
+                self._c_hit.inc()
+                if _trace._enabled:
+                    _trace.event("cache.hit", cat="cache", cache=self.name,
+                                 alias=False, sharded=True)
+                if _verify_flags.verify_plans:
+                    _verify_hit(plan, a)
+                return plan
+        # Build outside the lock; the per-shard plans recurse through
+        # self.get (each takes the lock for its own entry).
+        from repro_torch.distributed.spmm import build_sharded_plan
+
+        if _trace._enabled:
+            _trace.event("cache.miss", cat="cache", cache=self.name,
+                         sharded=True)
+        plan = build_sharded_plan(a, policy, cache=self)
+        with self._lock:
+            self._c_miss.inc()
+            self._entries[key] = plan
+            self._entries.move_to_end(key)
+            self._evict_over()
+            self._g_size.set(len(self._entries))
+            self._g_aliases.set(len(self._aliases))
+        return plan
+
+    def _evict_over(self) -> None:
+        # Callers hold self._lock.
+        while len(self._entries) > self.maxsize:
+            evicted, _ = self._entries.popitem(last=False)
+            self._aliases = OrderedDict(
+                (r, c) for r, c in self._aliases.items() if c != evicted)
+            self._c_evict.inc()
+            if _trace._enabled:
+                _trace.event("cache.eviction", cat="cache",
+                             cache=self.name)
 
     def stats(self) -> CacheStats:
         """The attribute view of this instance's registry counters."""
@@ -245,7 +306,7 @@ def default_cache() -> PlanCache:
     return _default_cache
 
 
-def get_plan(a: CSR, policy: PlanPolicy | None = None) -> SpmmPlan:
+def get_plan(a: CSR, policy: PlanPolicy | None = None):
     """Module-level convenience over the process-wide default cache."""
     return _default_cache.get(a, policy)
 

@@ -14,6 +14,8 @@ requests over shape-bucket programs.
     python -m repro_torch.launch.serve --prune-ffn 0.25 --microbatch 2
     python -m repro_torch.launch.serve --prune-ffn 0.25 --serve
     python -m repro_torch.launch.serve --smoke --prune-ffn 0.25 --device cpu
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+        --prune-ffn 0.25 --mesh 2
 
 Without ``--prune-ffn``, ``generate`` prefills the prompt into caches (KV
 for attention, the recurrent state of SSD and RG-LRU blocks) and decodes
@@ -31,8 +33,11 @@ a CUDA graph on the card, all built at warmup.  ``--tunedb`` loads a TuneDB
 "auto" plans resolve their method from its measurements.
 ``--trace-out PATH`` turns tracing on (``repro_torch.obs``) and writes the
 run's Chrome trace there; ``--metrics-out PATH`` dumps the metrics
-registry (``python -m repro_torch.obs.validate`` checks both).  Device
-meshes are a later slice of the port; the CLI rejects ``--mesh``.
+registry (``python -m repro_torch.obs.validate`` checks both).
+``--mesh N`` shards every pruned-FFN weight by rows over an N-rank
+``data`` mesh (``torchrun --nproc-per-node N``; one rank a shard, ranks
+sharing a card talk over gloo); only rank 0 prints.  Online serving over a
+mesh (``--serve --mesh``) comes with the next slice of the port.
 """
 from __future__ import annotations
 
@@ -44,10 +49,11 @@ import torch
 
 from repro_torch import engine, obs
 from repro_torch.configs import ARCHS, get_config, get_smoke_config
-from repro_torch.core import PlanPolicy
+from repro_torch.core import PlanPolicy, ShardSpec
 from repro_torch.core.config import resolve_counts
 from repro_torch.engine import cache_stats
 from repro_torch.kernels import registry
+from repro_torch.launch import mesh as launch_mesh
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.models import sparse as S
@@ -360,12 +366,16 @@ def main(argv=None):
                     "(latency histograms, plan-cache counters, ladder rung "
                     "rates, serving and program-cache counters) here on "
                     "exit")
-    # The reference's flag of a path this port has not reached yet.
-    ap.add_argument("--mesh", nargs="?", const=True, default=None,
-                    help=argparse.SUPPRESS)
+    ap.add_argument("--mesh", type=int, default=0, metavar="N",
+                    help="shard every pruned-FFN weight over an N-rank data "
+                    "mesh: nnz-balanced row shards, one local plan a "
+                    "shard, each rank running its own shard (run under "
+                    "torchrun --nproc-per-node N; N = 1 in one process "
+                    "runs the per-shard loop)")
+    ap.add_argument("--logits-out", default="", metavar="PATH",
+                    help="save the pruned-FFN logits here (torch.save, on "
+                    "the CPU; rank 0)")
     args = ap.parse_args(argv)
-    if args.mesh is not None:
-        ap.error("--mesh (sharded plans): not ported to repro_torch yet")
     if args.prune_ffn <= 0.0:
         # These flags only shape the pruned-FFN path; silently ignoring
         # them hides typos like a forgotten --prune-ffn.
@@ -374,15 +384,56 @@ def main(argv=None):
             ("--microbatch", args.microbatch != 0),
             ("--spmm-method", args.spmm_method != "auto"),
             ("--tunedb", bool(args.tunedb)),
+            ("--mesh", args.mesh != 0),
+            ("--logits-out", bool(args.logits_out)),
         ) if on]
         if dead:
             ap.error(f"{', '.join(dead)}: no effect without --prune-ffn "
                      "KEEP (the dense decode path ignores these flags); add "
                      "--prune-ffn or drop them")
+    if args.mesh and args.serve:
+        ap.error("--serve with --mesh: online serving over a mesh (every "
+                 "rank's server loop in lockstep) comes with the next slice "
+                 "of the port; drop one of them")
+    if args.mesh < 0:
+        ap.error(f"--mesh {args.mesh}: a rank count is positive")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda, but torch sees no CUDA device; "
                          "pass --device cpu to run the plain versions")
+    own_group = not torch.distributed.is_initialized()
+    try:
+        shard_mesh = _data_mesh(args.mesh, device) if args.mesh else None
+        with launch_mesh.rank0_prints():
+            return _run(args, device, shard_mesh)
+    finally:
+        if own_group:       # the group torchrun's environment started here
+            launch_mesh.shutdown()
+
+
+def _data_mesh(n: int, device: torch.device):
+    """The ``("data",)`` mesh of ``n`` ranks for ``--mesh n``: the
+    process group ``torchrun`` describes, or this one process."""
+    launch_mesh.init_from_env(device.type)
+    world = launch_mesh.world_size()
+    if n > world:
+        raise SystemExit(
+            f"--mesh {n} exceeds the {world} local device(s) (ranks of "
+            f"this process group); run it as torchrun --nproc-per-node {n} "
+            f"-m repro_torch.launch.serve ... --mesh {n}")
+    if n < world:
+        raise SystemExit(
+            f"--mesh {n} uses {n} of the {world} ranks torchrun started; "
+            f"start {n} (torchrun --nproc-per-node {n})")
+    if world == 1:
+        return launch_mesh.make_local_mesh(device_type=device.type)
+    mesh = launch_mesh.make_mesh((n,), ("data",), device.type)
+    print(f"[serve] rank {launch_mesh.rank()} of {world}: "
+          f"{torch.distributed.get_backend()} collectives")
+    return mesh
+
+
+def _run(args, device: torch.device, shard_mesh) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if args.trace_out:
@@ -407,6 +458,11 @@ def main(argv=None):
                   f"entries={len(db)} threshold={db.threshold}")
             resolved = resolve_counts()
         policy = PlanPolicy(method=args.spmm_method)
+        if shard_mesh is not None:
+            policy = dataclasses.replace(
+                policy, shards=ShardSpec(mesh=shard_mesh, axis="data"))
+            print(f"[serve] sharding pruned-FFN plans over {args.mesh} "
+                  "rank(s) (nnz-balanced row shards)")
         if args.serve:
             serve_online(cfg, params, args.prune_ffn, batch=args.batch,
                          prompt_len=args.prompt_len,
@@ -419,6 +475,9 @@ def main(argv=None):
                                microbatch=args.microbatch, policy=policy)
             print(f"pruned-FFN logits {tuple(rep.logits.shape)}; "
                   f"argmax@last {rep.logits[:, -1].argmax(-1).tolist()}")
+            if args.logits_out and launch_mesh.rank() == 0:
+                torch.save(rep.logits.cpu(), args.logits_out)
+                print(f"[serve] logits: {args.logits_out}")
         if args.tunedb:
             rungs = {f"{rung}/{method}": n for (rung, method), n in
                      resolve_counts(since=resolved).items()}

@@ -13,8 +13,13 @@ optionally through int8 error-feedback compression.  MoE experts run
 through the batched matmul (the grouped GEMM kernel has no backward).
 ``--trace-out PATH`` turns tracing on (a ``train.step`` span a step) and
 writes the Chrome trace there; ``--metrics-out PATH`` dumps the metrics
-registry.  Device meshes and sharded SpMM plans are later slices of the
-port; the CLI rejects ``--spmm-shards``.
+registry.  ``--spmm-shards N`` rebuilds every sparse leaf's plan as N
+nnz-balanced row shards (``repro_torch.distributed.spmm``).  Under
+``torchrun --nproc-per-node N`` each rank runs its own shard of every
+sparse layer on the same batches, so every rank holds the same state;
+rank 0 alone prints and saves checkpoints.  The dense params' placement
+over a mesh (the reference's ``distributed/sharding.py``) comes with the
+next slice of the port.
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ from repro_torch.configs import ARCHS, get_config, get_smoke_config
 from repro_torch.data import DataConfig, make_source
 from repro_torch.distributed import fault
 from repro_torch.kernels import registry
+from repro_torch.launch import mesh as launch_mesh
 from repro_torch.optim import adamw
 from repro_torch.runtime import steps as R
 
@@ -73,13 +79,16 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; 'cpu' runs the "
                     "plain versions)")
-    # The reference's flag of a path this port has not reached yet.
-    ap.add_argument("--spmm-shards", nargs="?", const=True, default=None,
-                    help=argparse.SUPPRESS)
+    ap.add_argument("--spmm-shards", type=int, default=0, metavar="N",
+                    help="rebuild sparse-layer plans as N nnz-balanced row "
+                    "shards (repro_torch.distributed.spmm); when N is the "
+                    "local mesh's data size under torchrun each rank runs "
+                    "its own shard, otherwise the shards run as a "
+                    "per-shard loop")
     args = ap.parse_args(argv)
-    if args.spmm_shards is not None:
-        ap.error("--spmm-shards (sharded SpMM plans): not ported to "
-                 "repro_torch yet")
+    if args.spmm_shards < 0:
+        ap.error(f"--spmm-shards {args.spmm_shards}: a shard count is "
+                 "positive")
     if args.global_batch % args.microbatches:
         ap.error(f"--global-batch {args.global_batch} does not split into "
                  f"--microbatches {args.microbatches}")
@@ -87,6 +96,18 @@ def main(argv=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda, but torch sees no CUDA device; "
                          "pass --device cpu to run the plain versions")
+    own_group = not torch.distributed.is_initialized()
+    try:
+        if args.spmm_shards:    # under torchrun: the group, before prints
+            launch_mesh.init_from_env(device.type)
+        with launch_mesh.rank0_prints():
+            return _run(args, device)
+    finally:
+        if own_group:       # the group torchrun's environment started here
+            launch_mesh.shutdown()
+
+
+def _run(args, device: torch.device) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if args.trace_out:
@@ -123,11 +144,25 @@ def main(argv=None):
     # Route any sparse layers through the SpMM engine: plans are (re)built
     # once here, so a step never plans (the identity on a dense tree).
     spmm_policy = None
-    if args.spmm_method:
-        from repro_torch.core import PlanPolicy
-        spmm_policy = PlanPolicy(method=args.spmm_method)
+    if args.spmm_method or args.spmm_shards:
+        from repro_torch.core import PlanPolicy, ShardSpec
+        shards = None
+        if args.spmm_shards:
+            from repro_torch.core.config import mesh_axis_size
+            mesh = launch_mesh.make_local_mesh(device_type=device.type)
+            shard_mesh = (mesh if mesh_axis_size(mesh, "data")
+                          == args.spmm_shards else None)
+            shards = ShardSpec(n=args.spmm_shards, mesh=shard_mesh)
+        spmm_policy = PlanPolicy(method=args.spmm_method or "auto",
+                                 shards=shards)
     state["params"] = R.ensure_spmm_plans(state["params"],
                                           policy=spmm_policy)
+    if args.spmm_shards:
+        print(f"[train] {R.count_sparse_leaves(state['params'])} sparse "
+              f"leaves sharded into {args.spmm_shards}")
+    if launch_mesh.world_size() > 1:
+        # Every rank has restored before rank 0 writes a checkpoint.
+        torch.distributed.barrier()
 
     data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq_len,
                           global_batch=args.global_batch, seed=args.seed,
@@ -154,7 +189,7 @@ def main(argv=None):
         want_ckpt = manager and (
             (step + 1) % args.ckpt_every == 0 or step == args.steps - 1
             or guard.should_checkpoint())
-        if want_ckpt:
+        if want_ckpt and launch_mesh.rank() == 0:
             fault.retry(lambda: manager.save(step + 1, state))
         if guard.should_checkpoint():
             print(f"[train] preempted; checkpointed at {step + 1}; "

@@ -14,9 +14,10 @@ implementation is the nonzero-split idea applied to experts:
   5. weighted scatter back to token order (the fix-up epilogue).
 
 Load balance is perfect by construction whatever the routing skew.
-``dense`` is the GShard-style einsum baseline.  The reference's
-``moe_groups > 1`` dispatch is sharded and arrives with the sharding
-slice.
+``dense`` is the GShard-style einsum baseline.  With ``moe_groups = g >
+1`` (and ``b·s`` divisible by ``g``) the tokens split into ``g`` groups,
+each sorted, capped and scattered on its own (the reference's
+hierarchical dispatch), their expert GEMMs folded into one launch.
 """
 from __future__ import annotations
 
@@ -115,18 +116,53 @@ def _group_mlp(buf, p, cfg, tt, use_kernel, impl=None):
     return torch.bmm(h, p["w2"].to(dt)).reshape(e * cap, -1)
 
 
-def _sort_moe(p, xt, gates, experts, cfg, tt, use_kernel, capacity_factor,
-              impl=None):
-    buf, meta = _sorted_dispatch(xt, experts, cfg, tt, capacity_factor)
-    out = _group_mlp(buf, p, cfg, tt, use_kernel, impl)
-    # fix-up epilogue: weighted scatter back to token order
+def _fixup(out, meta, gates, cfg, t):
+    """The fix-up epilogue: the weighted scatter of the expert outputs
+    ``out`` (E·cap, d) back to the order of the ``t`` tokens."""
     safe_slot = torch.clamp(meta["slot"], max=out.shape[0] - 1)
     contrib = torch.where(meta["keep"][:, None], out[safe_slot], 0.0)
     tok = meta["order"] // cfg.top_k
     w = gates.reshape(-1)[meta["order"]].to(contrib.dtype)
-    y = torch.zeros((xt.shape[0], out.shape[1]), dtype=contrib.dtype,
-                    device=xt.device)
+    y = torch.zeros((t, out.shape[1]), dtype=contrib.dtype,
+                    device=out.device)
     return y.index_add_(0, tok, contrib * w[:, None])
+
+
+def _sort_moe(p, xt, gates, experts, cfg, tt, use_kernel, capacity_factor,
+              impl=None):
+    buf, meta = _sorted_dispatch(xt, experts, cfg, tt, capacity_factor)
+    out = _group_mlp(buf, p, cfg, tt, use_kernel, impl)
+    return _fixup(out, meta, gates, cfg, xt.shape[0])
+
+
+def _grouped_sort_moe(p, xt, gates, experts, cfg, groups, tt, use_kernel,
+                      capacity_factor, impl=None):
+    """The hierarchical dispatch: the tokens split into ``groups`` equal
+    groups, each sorted into its own fixed-capacity buffer (its own
+    capacity, its own drops) and scattered back on its own, as the
+    reference's ``vmap`` of ``_sort_moe`` over the groups.  The expert
+    GEMMs of all groups run as one: the buffers fold expert-major (expert
+    ``e``'s rows of group 0, then of group 1, ...), so each grouped GEMM
+    launch takes ``groups · cap`` rows an expert, and each row's product
+    is the one a group's own launch computes."""
+    t, d = xt.shape
+    tg, e = t // groups, cfg.num_experts
+    bufs, metas = [], []
+    for i in range(groups):
+        buf, meta = _sorted_dispatch(xt[i * tg:(i + 1) * tg],
+                                     experts[i * tg:(i + 1) * tg], cfg, tt,
+                                     capacity_factor)
+        bufs.append(buf)
+        metas.append(meta)
+    cap = metas[0]["cap"]                 # a function of tg alone
+    folded = torch.stack(bufs).reshape(groups, e, cap, d).transpose(0, 1)
+    out = _group_mlp(folded.reshape(e * groups * cap, d), p, cfg, tt,
+                     use_kernel, impl)
+    out = out.reshape(e, groups, cap, -1).transpose(0, 1)
+    return torch.cat([
+        _fixup(out[i].reshape(e * cap, -1), metas[i],
+               gates[i * tg:(i + 1) * tg], cfg, tg)
+        for i in range(groups)])
 
 
 def moe_apply(p, x, cfg, *, tt: int = TT, use_kernel: bool | None = None,
@@ -145,11 +181,12 @@ def moe_apply(p, x, cfg, *, tt: int = TT, use_kernel: bool | None = None,
     aux = aux_load_balance_loss(probs, experts, cfg)
     if cfg.moe_impl == "dense":
         y = _dense_moe(p, xt, gates, experts, cfg)
-    elif cfg.moe_groups > 1:
-        raise ValueError(
-            f"moe_groups={cfg.moe_groups}: the hierarchical (sharded) MoE "
-            "dispatch is not ported yet; it arrives with the sharding "
-            "slice")
+    elif cfg.moe_groups > 1 and (b * s) % cfg.moe_groups == 0:
+        # Hierarchical dispatch: a local sort and scatter a group (groups
+        # track the data shards, so the merge ordering never crosses
+        # them); a capacity a group keeps the total work equal.
+        y = _grouped_sort_moe(p, xt, gates, experts, cfg, cfg.moe_groups,
+                              tt, use_kernel, capacity_factor, impl)
     else:
         y = _sort_moe(p, xt, gates, experts, cfg, tt, use_kernel,
                       capacity_factor, impl)

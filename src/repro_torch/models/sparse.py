@@ -30,7 +30,8 @@ BATCHED_MIN_TOKENS = 128
 @dataclasses.dataclass(frozen=True, eq=False)
 class SparseLinear:
     weight: CSR                    # (d_out, d_in)
-    plan: SpmmPlan | None          # pattern plan (None = plan on first use)
+    plan: SpmmPlan | None          # pattern plan (None = plan on first use;
+                                   # or a ShardedSpmmPlan, ``shard``)
 
     @classmethod
     def from_dense(cls, w: torch.Tensor, keep_fraction: float, *,
@@ -58,6 +59,16 @@ class SparseLinear:
             mtx = SparseMatrix(self.weight).plan_like(self.plan.meta)
         else:
             mtx = SparseMatrix(self.weight).plan(policy or PlanPolicy())
+        return dataclasses.replace(self, plan=mtx.spmm_plan)
+
+    def shard(self, mesh=None, *, n: int | None = None, dim: str = "rows",
+              axis: str | None = None,
+              policy: PlanPolicy | None = None) -> SparseLinear:
+        """Re-plan this layer's weight with a device-sharded plan:
+        nnz-balanced shards, one local plan a shard (see
+        ``SparseMatrix.shard`` / ``repro_torch.distributed.spmm``)."""
+        mtx = SparseMatrix(self.weight).shard(mesh, n=n, dim=dim, axis=axis,
+                                              policy=policy)
         return dataclasses.replace(self, plan=mtx.spmm_plan)
 
     def __call__(self, x: torch.Tensor,

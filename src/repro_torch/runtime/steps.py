@@ -223,15 +223,22 @@ def ensure_spmm_plans(tree, policy=None, mesh=None):
 
     ``policy`` (a ``PlanPolicy``) pins the plan request for every leaf;
     with ``policy=None`` each leaf's attached plan has its statics
-    replayed (a cache hit when the plan exists).  Call it outside the hot
-    loop: the steps then never plan.  Sharded plans (``mesh``) are not
-    ported.
+    replayed (a cache hit when the plan exists).  With ``mesh`` (a
+    ``DeviceMesh``) given, or ``policy.shards`` set, every leaf gets a
+    device-sharded plan: nnz-balanced row shards, one local plan a shard
+    (``repro_torch.distributed.spmm``).  Call it outside the hot loop: the
+    steps then never plan.
     """
-    if mesh is not None:
-        raise ValueError("ensure_spmm_plans: device-sharded plans (mesh=) "
-                         "are not ported yet")
+    if mesh is not None and policy is not None and \
+            policy.shards is not None:
+        raise ValueError(
+            "ensure_spmm_plans: pass the mesh either as mesh= or inside "
+            "policy.shards, not both")
 
     def attach(x):
+        if mesh is not None and isinstance(x, (S.SparseLinear,
+                                               SparseMatrix)):
+            return x.shard(mesh, policy=policy)
         if isinstance(x, S.SparseLinear):
             return x.with_plan(policy)
         if isinstance(x, SparseMatrix):
@@ -247,6 +254,18 @@ def ensure_spmm_plans(tree, policy=None, mesh=None):
     return attach(tree)
 
 
+def count_sparse_leaves(tree) -> int:
+    """The ``SparseLinear`` and ``SparseMatrix`` leaves of a tree of dicts
+    and lists."""
+    if isinstance(tree, (S.SparseLinear, SparseMatrix)):
+        return 1
+    if isinstance(tree, dict):
+        return sum(count_sparse_leaves(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(count_sparse_leaves(v) for v in tree)
+    return 0
+
+
 def make_sparse_train_step(sparse_p: dict, *, lr: float = 1e-2,
                            exec: ExecutionConfig | None = None):
     """SGD step over the CSR *values* of a SparseLinear MLP.
@@ -260,7 +279,7 @@ def make_sparse_train_step(sparse_p: dict, *, lr: float = 1e-2,
     """
     sparse_p = ensure_spmm_plans(sparse_p)
     missing = sorted(name for name, sl in sparse_p.items()
-                     if sl.plan.bwd is None)
+                     if not sl.plan.meta.has_transpose)
     if missing:
         raise ValueError(
             f"make_sparse_train_step: the plans of {missing} have no "

@@ -244,10 +244,51 @@ def test_sort_matches_dense_at_full_capacity():
 
 
 def test_moe_groups_raise():
-    _, tcfg, _, tp, x = _moe_both(1.25)
-    cfg = dataclasses.replace(tcfg, moe_groups=2)
-    with pytest.raises(ValueError, match="sharding"):
-        moe.moe_apply(tp, torch.from_numpy(x), cfg)
+    # A capacity low enough that some experts of each group drop replicas
+    # and others do not.
+    for use_kernel in (False, True):
+        _moe_groups_case(0.25, use_kernel)
+
+
+def _moe_groups_case(capacity_factor, use_kernel):
+    """``moe_groups = 2`` (it raised before the hierarchical dispatch was
+    ported): two groups of 32 tokens, each with its own capacity and
+    drops, against the reference's ``vmap`` over the groups, and not the
+    ungrouped result; through the batched matmul and the grouped GEMM op
+    (its plain version here, the groups folded into one call a
+    weight)."""
+    jcfg, tcfg, jp, tp, x = _moe_both(capacity_factor, batch=4, seq=16)
+    jcfg = dataclasses.replace(jcfg, moe_groups=2)
+    tcfg = dataclasses.replace(tcfg, moe_groups=2)
+    want, jaux = jmoe.moe_apply(jp, jnp.asarray(x), jcfg, tt=8,
+                                use_kernel=False,
+                                capacity_factor=capacity_factor)
+    got, aux = moe.moe_apply(tp, torch.from_numpy(x), tcfg, tt=8,
+                             use_kernel=use_kernel,
+                             capacity_factor=capacity_factor)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4,
+                               atol=2e-4)
+    np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-5)
+    flat, _ = moe.moe_apply(tp, torch.from_numpy(x),
+                            dataclasses.replace(tcfg, moe_groups=0), tt=8,
+                            use_kernel=use_kernel,
+                            capacity_factor=capacity_factor)
+    assert not torch.allclose(flat, got, rtol=2e-4, atol=2e-4)
+
+
+def test_moe_groups_indivisible_takes_the_ungrouped_path():
+    """``b·s`` not divisible by ``moe_groups``: the ungrouped dispatch, as
+    in the reference."""
+    jcfg, tcfg, jp, tp, x = _moe_both(1.25, batch=3, seq=5)
+    got, _ = moe.moe_apply(tp, torch.from_numpy(x),
+                           dataclasses.replace(tcfg, moe_groups=4))
+    flat, _ = moe.moe_apply(tp, torch.from_numpy(x), tcfg)
+    assert torch.equal(got, flat)
+    want, _ = jmoe.moe_apply(jp, jnp.asarray(x),
+                             dataclasses.replace(jcfg, moe_groups=4),
+                             use_kernel=False)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4,
+                               atol=2e-4)
 
 
 def test_full_width_capacity_is_one_block_per_expert():

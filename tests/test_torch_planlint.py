@@ -398,8 +398,8 @@ def test_cli_planlint_mini_on_cpu(tmp_path, capsys):
     rec = json.loads(path.read_text())
     assert set(rec) == PAYLOAD_KEYS
     assert rec == {"command": "planlint", "exit": 0, "suite": "mini",
-                   "plans_checked": 9, "diagnostics": []}
-    assert "9 plan(s) verified on suite 'mini' (cpu), 0 finding(s)" in \
+                   "plans_checked": 15, "diagnostics": []}
+    assert "15 plan(s) verified on suite 'mini' (cpu), 0 finding(s)" in \
         capsys.readouterr().out
     path = tmp_path / "all.json"
     assert cli.main(["all", "--device", "cpu", "--json", str(path)]) == 0
@@ -416,7 +416,8 @@ def test_cli_planlint_reports_findings(tmp_path, monkeypatch, capsys):
     assert cli.main(["planlint", "--device", "cpu", "--json",
                      str(path)]) == 1
     rec = json.loads(path.read_text())
-    assert rec["exit"] == 1 and len(rec["diagnostics"]) == 9
+    # One a method plan (9), one a shard of each two-shard plan (2 x 6).
+    assert rec["exit"] == 1 and len(rec["diagnostics"]) == 9 + 2 * 6
     assert rec["diagnostics"][0] == {"code": "P021", "where": "plan.fwd",
                                      "message": "injected"}
     assert "plan.fwd: P021 injected" in capsys.readouterr().out

@@ -117,10 +117,37 @@ def test_main_default_args_smoke_on_cpu():
      "--mesh", "2"],
 ])
 def test_main_rejects_paths_not_ported(argv, capsys):
+    """What ``--mesh`` refuses: without ``--prune-ffn`` it is a dead flag;
+    ``--mesh 2`` in one CPU process exceeds its one rank (naming
+    torchrun); ``--serve --mesh`` waits for the next slice."""
     with pytest.raises(SystemExit) as e:
         serve.main(argv)
-    assert e.value.code == 2
-    assert "not ported" in capsys.readouterr().err
+    if "--prune-ffn" not in argv:
+        assert e.value.code == 2
+        assert "--mesh: no effect without --prune-ffn" in \
+            capsys.readouterr().err
+    elif "--serve" in argv:
+        assert e.value.code == 2
+        assert "next slice" in capsys.readouterr().err
+    else:
+        assert "--mesh 2 exceeds the 1 local device(s)" in str(e.value)
+        assert "torchrun --nproc-per-node 2" in str(e.value)
+
+
+def test_main_mesh_one_rank_runs_the_shard_loop(tmp_path, capsys):
+    """``--mesh 1`` in one process: every pruned-FFN weight gets a
+    one-shard plan (the per-shard loop, no process group), and the logits
+    equal the unsharded run's."""
+    paths = [tmp_path / "mesh.pt", tmp_path / "flat.pt"]
+    base = ["--smoke", "--prune-ffn", "0.25", "--device", "cpu",
+            "--batch", "2", "--prompt-len", "8"]
+    assert serve.main(base + ["--mesh", "1", "--logits-out",
+                              str(paths[0])]) == 0
+    out = capsys.readouterr().out
+    assert "sharding pruned-FFN plans over 1 rank(s)" in out
+    assert "plans built during serving: 0" in out
+    assert serve.main(base + ["--logits-out", str(paths[1])]) == 0
+    assert torch.equal(torch.load(paths[0]), torch.load(paths[1]))
 
 
 def test_main_serve_on_cpu(capsys, tmp_path):

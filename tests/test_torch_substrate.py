@@ -17,6 +17,7 @@ from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.data import DataConfig, SyntheticLM, make_source  # noqa: E402
 from repro_torch.distributed import fault  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
+from repro_torch.runtime import steps as R  # noqa: E402
 from repro_torch.tree import leaves  # noqa: E402
 
 
@@ -218,10 +219,41 @@ def test_train_cli_int8_moe_runs(capsys):
 
 @pytest.mark.parametrize("args", [["--spmm-shards"], ["--spmm-shards", "2"]])
 def test_train_cli_refuses_unported_flags(args, capsys):
-    with pytest.raises(SystemExit) as e:
-        train.main(SMOKE + args)
-    assert e.value.code == 2
-    assert "not ported" in capsys.readouterr().err
+    """``--spmm-shards`` (refused before the sharding slice): without a
+    count it is an argparse error, as the reference's ``type=int`` flag;
+    ``--spmm-shards 2`` trains, and says it sharded nothing (the dense
+    smoke model has no sparse leaf)."""
+    if len(args) == 1:
+        with pytest.raises(SystemExit) as e:
+            train.main(SMOKE + args)
+        assert e.value.code == 2
+        assert "expected one argument" in capsys.readouterr().err
+        return
+    assert train.main(SMOKE + args + ["--steps", "2"]) == 0
+    out = capsys.readouterr().out
+    assert "[train] 0 sparse leaves sharded into 2" in out
+    assert "step     1 loss=" in out
+
+
+def test_train_spmm_shards_policy_shards_sparse_leaves():
+    """The train CLI's ``--spmm-shards`` policy on a tree that has a
+    ``SparseLinear``: ``ensure_spmm_plans`` attaches a two-shard plan, run
+    as the per-shard loop (no process group), equal to the unsharded
+    layer."""
+    from repro_torch.core import PlanPolicy, ShardSpec
+    from repro_torch.core.csr import random_csr
+    from repro_torch.models.sparse import SparseLinear
+    w = random_csr(3, 48, 32, nnz_per_row=(1, 9))
+    tree = {"blocks": [{"mlp": {"w1": SparseLinear(w, None)}}], "x": 1}
+    policy = PlanPolicy(shards=ShardSpec(n=2, mesh=None))
+    out = R.ensure_spmm_plans(tree, policy=policy)
+    assert R.count_sparse_leaves(out) == 1
+    layer = out["blocks"][0]["mlp"]["w1"]
+    assert layer.plan.meta.n_shards == 2 and layer.plan.meta.spmd_mesh() \
+        is None
+    x = torch.randn(5, 32, generator=torch.Generator().manual_seed(0))
+    flat = SparseLinear(w, None)
+    torch.testing.assert_close(layer(x), flat(x), rtol=2e-5, atol=2e-5)
 
 
 def test_train_cli_refuses_cuda_without_a_card():

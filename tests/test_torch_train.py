@@ -23,7 +23,9 @@ from repro.models.sparse import prune_mlp as jprune_mlp  # noqa: E402
 from repro.runtime import steps as jsteps  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import PlanPolicy, SparseMatrix  # noqa: E402
+from repro_torch.distributed.spmm import ShardedSpmmPlan  # noqa: E402
 from repro_torch.engine import cache_stats  # noqa: E402
+from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
 from repro_torch.models import sparse as S  # noqa: E402
 from repro_torch.runtime import steps  # noqa: E402
 
@@ -107,7 +109,8 @@ def test_train_step_refuses_forward_only_plans():
 
 def test_ensure_spmm_plans_walks_dicts_and_lists():
     """Plans replay from the cache (0 built); other leaves pass through;
-    an explicit policy re-plans; sharded plans are refused."""
+    an explicit policy re-plans; ``mesh=`` attaches sharded plans to every
+    sparse leaf (mesh= and policy.shards together raise)."""
     _, tsp, _, _ = _both("gelu", "merge")
     mtx = SparseMatrix(tsp["w1"].weight).plan(PlanPolicy(method="merge"))
     tree = {"mlp": tsp, "extra": [mtx, 3, "x"]}
@@ -119,8 +122,16 @@ def test_ensure_spmm_plans_walks_dicts_and_lists():
     assert all(out["mlp"][n].plan is sl.plan for n, sl in tsp.items())
     rs = steps.ensure_spmm_plans(tsp, PlanPolicy(method="rowsplit"))
     assert {sl.method for sl in rs.values()} == {"rowsplit"}
-    with pytest.raises(ValueError, match="not ported"):
-        steps.ensure_spmm_plans(tsp, mesh=object())
+    mesh = make_local_mesh(device_type="cpu")
+    sh = steps.ensure_spmm_plans(tree, mesh=mesh)
+    for leaf in (*sh["mlp"].values(), sh["extra"][0]):
+        plan = leaf.plan if isinstance(leaf, S.SparseLinear) \
+            else leaf.spmm_plan
+        assert isinstance(plan, ShardedSpmmPlan)
+        assert plan.meta.mesh is mesh and plan.meta.n_shards == 1
+    assert sh["extra"][1:] == [3, "x"]
+    with pytest.raises(ValueError, match="not both"):
+        steps.ensure_spmm_plans(tsp, PlanPolicy(shards=2), mesh=mesh)
 
 
 def test_mlp_with_vals_rebinds_values_only():
