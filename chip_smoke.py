@@ -233,8 +233,28 @@ NVIDIA H100 (sm_90a) and the CUDA toolkit.  Phases, each timed:
               the plain version and the unsharded merge C); an OLMoE-1B-7B MoE layer at
               ``moe_groups`` 4 against its plain version and ``moe_groups``
               0.  ``python3 chip_smoke.py --sharded-only`` runs the build
-              and this phase alone;
-13. summary — a ``kernels`` JSON line (each row with its roof fraction
+              and this phase alone; the sharded training's dvals are also
+              held, sharded and unsharded, against float64 dvals;
+13. model_parallel — Llama-3.2-1B at full width pruned at 0.25, one
+              prompt of 32,768 tokens (``prefill_32k``'s sequence) through
+              ``serve.prune_ffn_blocks`` and ``serve.generate`` (the
+              prefill, then 4 greedy tokens), its SpMM launches by kernel
+              and body counted from 0, the prefill's host ms and device
+              span, the peak memory (under 24 GB); layer 0's w1 at n =
+              32,768 by row-split and merge against their plain versions
+              and the 2·nnz·n bound; the blockwise ``layers.
+              flash_attention`` on layer 0's q/k/v at 1 x 8192 against
+              the flash kernel (bf16) and the unchunked formula (f32);
+              four gloo ranks on the one card (``mesh_child``) in a 2 x 2
+              mesh, ``launch.dryrun.build_step_and_shardings`` for
+              train_4k's kind on Llama-3.2-1B cut to 2 layers (f32),
+              the gradients and 2 steps' losses against the one-process
+              step, then the state resharded 2 x 2 -> 4 x 1 -> 2 x 2 bit
+              for bit; and ``python -m repro_torch.launch.dryrun`` on two
+              cells in child processes (the host's CPU, a fake group),
+              each cell's per-rank bytes.  ``python3 chip_smoke.py
+              --model-parallel-only`` runs the build and this phase alone;
+14. summary — a ``kernels`` JSON line (each row with its roof fraction
               and its launch model), the card's name and power limit, and
               last the ``{"ok": true, ...}`` line.
 
@@ -4501,7 +4521,8 @@ def sharded_grads(cfg, mlp, dev, card, reset_counts, read_counts) -> dict:
         return dict(zip([*vals, "dB(x)"], g))
 
     want = grads(flat)
-    out = {"launches": collections.Counter()}
+    exact = f64_dvals(flat, x, y)
+    out = {"launches": collections.Counter(), "f64": {}}
     worst = 0.0
     for dim in ("rows", "cols"):
         layers = {k: sl.shard(n=GRAD_SHARDS, dim=dim)
@@ -4529,6 +4550,10 @@ def sharded_grads(cfg, mlp, dev, card, reset_counts, read_counts) -> dict:
             gaps[name] = (f"{d:.3e} of max {want[name].abs().max().item():.3e}"
                           f" ({over} outside atol 1e-5 unscaled)")
             worst = max(worst, d)
+            if name in exact:
+                out["f64"][f"{dim} {name}"] = f64_gaps(
+                    f"sharded {dim} {name}", got[name], want[name],
+                    exact[name], card)
         print(f"sharded grads {dim} x {GRAD_SHARDS}: losses "
               + ", ".join(f"{v:.6f}" for v in losses)
               + f"; launches a step {per_step} (the forward SpMM and "
@@ -4553,6 +4578,57 @@ def sharded_grads(cfg, mlp, dev, card, reset_counts, read_counts) -> dict:
         del layers, step, vals
     out["worst"] = worst
     return out
+
+
+def f64_dvals(flat, x, y) -> dict:
+    """The sum-of-squares loss's dvals of each pruned FFN matrix in
+    float64 on the card: the CSR values scattered into dense float64
+    weights, the MLP and its gradients in float64, each weight's gradient
+    read at its pattern's entries (padded slots 0)."""
+    import torch.nn.functional as F
+    dense, where = {}, {}
+    for name, sl in flat.items():
+        a = sl.weight
+        m, k = a.shape
+        nnz = int(a.row_ptr[-1])
+        rows = torch.repeat_interleave(
+            torch.arange(m, device=x.device), a.row_ptr.diff().long())
+        cols = a.col_ind[:nnz].long()
+        w = torch.zeros(m, k, dtype=torch.float64, device=x.device)
+        w[rows, cols] = a.vals[:nnz].double()
+        dense[name] = w.requires_grad_(True)
+        where[name] = (rows, cols, a.vals.shape[0])
+    xd, yd = x.double(), y.double()
+    h = F.silu(xd @ dense["w1"].T) * (xd @ dense["w3"].T)
+    loss = ((h @ dense["w2"].T - yd) ** 2).sum()
+    g = dict(zip(dense, torch.autograd.grad(loss, list(dense.values()))))
+    out = {}
+    for name, (rows, cols, n_pad) in where.items():
+        d = torch.zeros(n_pad, dtype=torch.float64, device=x.device)
+        d[:rows.numel()] = g[name][rows, cols]
+        out[name] = d
+    return out
+
+
+def f64_gaps(what, got, want, exact, card) -> dict:
+    """Sharded (``got``) and unsharded (``want``) float32 dvals against the
+    float64 ones (``exact``): the largest error of each, over all entries
+    and over the entries where the two float32 runs differ by more than
+    the gradient bar's unscaled atol 1e-5 (rtol 1e-4)."""
+    off = ~torch.isclose(got, want, rtol=SHARD_GRAD_TOL["rtol"],
+                         atol=SHARD_GRAD_TOL["atol_of_max"])
+    e_sh = (got.double() - exact).abs()
+    e_un = (want.double() - exact).abs()
+    res = dict(entries=int(off.sum()), max_sharded=e_sh.max().item(),
+               max_unsharded=e_un.max().item(),
+               off_sharded=e_sh[off].max().item() if off.any() else 0.0,
+               off_unsharded=e_un[off].max().item() if off.any() else 0.0)
+    print(f"{what} vs float64: sharded max |d| {res['max_sharded']:.3e}, "
+          f"unsharded {res['max_unsharded']:.3e}; at the {res['entries']} "
+          f"entries outside atol 1e-5 of each other: sharded "
+          f"{res['off_sharded']:.3e}, unsharded {res['off_unsharded']:.3e}"
+          f"; {card}")
+    return res
 
 
 def spmd_child() -> int:
@@ -4803,6 +4879,474 @@ def sharded(dev, card, reset_counts, read_counts) -> dict:
                        "moe_gemm": mo["max_abs"]})
 
 
+# ---------------------------------------------------------- model parallel --
+# One prompt of prefill_32k's length through Llama-3.2-1B's pruned serve
+# path, then LONG_GEN greedy tokens; its peak must stay under LONG_PEAK.
+LONG_PREFILL, LONG_GEN, LONG_PEAK = 32_768, 4, 24e9
+LONG_PLAIN_COLS = 256                # the plain versions, a column block
+ATTN_PARITY_S = 8192
+# The mesh step: MP_RANKS gloo ranks on the one card, a 2 x 2 mesh;
+# Llama-3.2-1B at full width cut to MP_LAYERS layers, f32 compute.
+MP_RANKS, MP_LAYERS, MP_BATCH, MP_SEQ, MP_STEPS = 4, 2, 4, 256, 2
+MP_JOIN_S = 420
+DRYRUNS = (("llama3.2-1b", "prefill_32k", ["--both-meshes"]),
+           ("qwen2-72b", "train_4k", []))
+DRYRUN_S = 700
+
+
+class EventTimes(list):
+    """``serve.generate``'s ``times``: each append, made after a forward
+    and its synchronise, also records a CUDA event."""
+
+    def __init__(self):
+        super().__init__()
+        self.events = []
+
+    def append(self, ms):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.events.append(ev)
+        super().append(ms)
+
+
+def long_spmm_hold(sl, x, dev, card) -> dict:
+    """Layer 0's pruned w1 at n = LONG_PREFILL: the served B (x
+    transposed, f32), row-split on the served plan and merge on a merge
+    plan of the same pattern, each kernel held against its plain version
+    (a block of LONG_PLAIN_COLS columns at a time) at the f32 parity bar,
+    timed, and set beside the 2·nnz·n bound at 67 TFLOP/s."""
+    from repro_torch.core import PlanPolicy, build_plan
+    from repro_torch.kernels import merge_spmm, ops, rowsplit_spmm
+    a = sl.weight
+    m, k = a.shape
+    b = x.transpose(-1, -2).float().contiguous()           # (1, k, n)
+    n = b.shape[-1]
+    nnz = a.nnz()
+    bound = 2 * nnz * n / FP32_FLOP_PER_S * 1e3
+    plans = {"rowsplit": sl.plan,
+             "merge": build_plan(a, PlanPolicy(method="merge",
+                                               with_transpose=False))}
+    kernels = {"rowsplit": rowsplit_spmm.rowsplit_spmm_cuda,
+               "merge": merge_spmm.merge_spmm_cuda}
+    execs = {"rowsplit": ops.rowsplit_execute, "merge": ops.merge_execute}
+    out = {}
+    for method, plan in plans.items():
+        if plan.meta.method != method:
+            raise AssertionError(f"layer 0 w1's plan is {plan.meta.method}"
+                                 f", expected {method}")
+        fwd = plan.fwd
+        got = kernels[method](fwd, a.vals, b, m)[0]
+        want = torch.cat([execs[method](
+            fwd, a.vals, b[0, :, c:c + LONG_PLAIN_COLS], m=m, impl="torch")
+            for c in range(0, n, LONG_PLAIN_COLS)], dim=1)
+        torch.cuda.synchronize()
+        d, r = check_close(f"{method} at n={n}", got, want, TOL["float32"])
+        del got, want
+        ms = time_ms(lambda: kernels[method](fwd, a.vals, b, m), reps=3,
+                     inner=3)
+        out[method] = dict(n=n, nnz=nnz, ms=ms, bound_ms=bound, max_abs=d)
+        print(f"long prefill {method} layer 0 w1 {(m, k)} nnz {nnz} n {n} "
+              f"f32: kernel vs plain (blocks of {LONG_PLAIN_COLS} columns) "
+              f"max |d| {d:.3e} (tol rtol {TOL['float32']['rtol']} atol "
+              f"{TOL['float32']['atol']}; worst ratio {r:.3f}); kernel "
+              f"{ms:.4f} ms, {ms / bound:.2f}x the 2*nnz*n bound {bound:.4f}"
+              f" ms; {card}")
+    return out
+
+
+def long_prefill(dev, card, reset_counts, read_counts) -> dict:
+    """Llama-3.2-1B at full width, keep KEEP: one prompt of LONG_PREFILL
+    tokens through the serve path (``serve.prune_ffn_blocks``, then
+    ``serve.generate``: the prefill, then LONG_GEN greedy decode steps),
+    counted from 0; its SpMM launches by kernel and body, the prefill's
+    host ms and device span, decode steps, and the peak memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.engine import clear_cache
+    from repro_torch.kernels import merge_spmm, rowsplit_spmm
+    from repro_torch.launch import serve
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    clear_cache()
+    torch.cuda.empty_cache()
+    cfg = get_config("llama3.2-1b")
+    params = M.init_params(cfg, SEED, dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    prompt = torch.randint(0, cfg.vocab_size, (1, LONG_PREFILL),
+                           generator=g, device=dev)
+    t0 = time.perf_counter()
+    pruned = dict(params, blocks=serve.prune_ffn_blocks(params, cfg, KEEP))
+    del params
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    methods = collections.Counter(sl.method for blk in pruned["blocks"]
+                                  for sl in blk["mlp"].values())
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    reset_counts()
+    times = EventTimes()
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = serve.generate(cfg, pruned, prompt, LONG_GEN, times=times)
+    counts = read_counts()
+    bodies = {name: dict(mod.LAUNCHES_BY_BODY) for name, mod in
+              (("rowsplit_spmm", rowsplit_spmm), ("merge_spmm", merge_spmm))}
+    peak = torch.cuda.max_memory_allocated()
+    span = start.elapsed_time(times.events[0])
+    want = dict.fromkeys(counts, 0)
+    for method, n in methods.items():
+        want[KERNEL_OF[method]] += n * (1 + LONG_GEN)
+    print(f"long prefill {cfg.name} {cfg.num_layers} layers, keep {KEEP}, "
+          f"1 x {LONG_PREFILL} tokens + {LONG_GEN} greedy: planned "
+          f"{dict(methods)} in {plan_s:.2f} s; launches {counts} (want "
+          f"{want}), by body {bodies}; prefill host {times[0]:.1f} ms "
+          f"(synchronised), device span {span:.1f} ms (CUDA events, start "
+          f"to the prefill's end); decode steps "
+          + ", ".join(f"{t:.1f}" for t in times[1:])
+          + f" ms; peak {peak / 1e9:.3f} GB (allocated before "
+          f"{before / 1e9:.3f} GB; limit {LONG_PEAK / 1e9:.0f} GB); {card}")
+    if counts != want:
+        raise AssertionError(f"long prefill launched {counts}, want {want}")
+    if peak >= LONG_PEAK:
+        raise AssertionError(f"long prefill peak {peak / 1e9:.3f} GB")
+    if out.shape != (1, LONG_PREFILL + LONG_GEN) or not bool(
+            ((out >= 0) & (out < cfg.vocab_size)).all()) or not torch.equal(
+            out[:, :LONG_PREFILL], prompt):
+        raise AssertionError(f"long prefill generated {tuple(out.shape)}")
+    print(f"long prefill tokens {out[0, LONG_PREFILL:].tolist()}")
+    with torch.no_grad():
+        x = M.embed_inputs(pruned, cfg, {"tokens": prompt})
+        x = L.norm_apply(pruned["blocks"][0]["ln2"], x, cfg.norm)
+        hold = long_spmm_hold(pruned["blocks"][0]["mlp"]["w1"], x, dev,
+                              card)
+    del pruned, x
+    clear_cache()
+    torch.cuda.empty_cache()
+    return dict(launches=counts, bodies=bodies, prefill_host_ms=times[0],
+                prefill_span_ms=span, decode_ms=list(times[1:]), peak=peak,
+                hold=hold)
+
+
+def dense_attention(q, k, v):
+    """The unchunked causal GQA formula: every score of the prompt at
+    once, f32 (for the parity check only)."""
+    b, s, h, dh = q.shape
+    kvh = k.shape[2]
+    qg = q.reshape(b, s, kvh, h // kvh, dh).float()
+    sc = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * dh ** -0.5
+    pos = torch.arange(s, device=q.device)
+    sc = sc.masked_fill(pos[:, None] < pos[None, :], float("-inf"))
+    p = torch.softmax(sc, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bkgqd", p, v.float())
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, dh).to(q.dtype)
+
+
+def attention_parity(dev, card) -> dict:
+    """Llama-3.2-1B's layer-0 q/k/v at 1 x ATTN_PARITY_S: the model path's
+    blockwise ``layers.flash_attention`` (its chunk for the length) held
+    against the CUDA ``ops.flash_attention`` in bf16 and against the
+    unchunked formula in f32, with the times of each."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    q, k, v = model_qkv("llama3.2-1b", 1, ATTN_PARITY_S, dev)
+    c = L.attention_chunk(ATTN_PARITY_S)
+    res = {}
+    with torch.no_grad():
+        blk = L.flash_attention(q, k, v, q_chunk=c, kv_chunk=c)
+        ker = ops.flash_attention(q, k, v, impl="cuda")
+        torch.cuda.synchronize()
+        d, r = check_close("blockwise vs flash kernel bf16", blk, ker,
+                           FLASH_TOL["bfloat16"])
+        res["bf16_vs_kernel"] = d
+        blk_ms = time_ms(lambda: L.flash_attention(q, k, v, q_chunk=c,
+                                                   kv_chunk=c),
+                         reps=3, inner=2)
+        ker_ms = time_ms(lambda: ops.flash_attention(q, k, v, impl="cuda"),
+                         reps=3, inner=5)
+        print(f"attention parity llama3.2-1b layer 0 1 x {ATTN_PARITY_S} "
+              f"bf16: blockwise ({c}-chunks) vs the flash kernel max |d| "
+              f"{d:.3e} (tol rtol {FLASH_TOL['bfloat16']['rtol']}; worst "
+              f"ratio {r:.3f}); blockwise {blk_ms:.3f} ms, kernel "
+              f"{ker_ms:.4f} ms; {card}")
+        qf, kf, vf = q.float(), k.float(), v.float()
+        del blk, ker, q, k, v
+        blk = L.flash_attention(qf, kf, vf, q_chunk=c, kv_chunk=c)
+        want = dense_attention(qf, kf, vf)
+        torch.cuda.synchronize()
+        d, r = check_close("blockwise vs unchunked f32", blk, want,
+                           FLASH_TOL["float32"])
+        res["f32_vs_unchunked"] = d
+        print(f"attention parity f32: blockwise vs the unchunked formula "
+              f"max |d| {d:.3e} (tol rtol {FLASH_TOL['float32']['rtol']} "
+              f"atol {FLASH_TOL['float32']['atol']}; worst ratio {r:.3f});"
+              f" {card}")
+    del blk, want, qf, kf, vf
+    torch.cuda.empty_cache()
+    return dict(res, blockwise_ms=blk_ms, kernel_ms=ker_ms)
+
+
+def mesh_child() -> int:
+    """One rank of the mesh step (``python3 -c``; argv: rank, world, the
+    rendezvous file, the output directory), on ``cuda:0`` shared with the
+    other ranks over gloo: ``dryrun.build_step_and_shardings`` for
+    train_4k's kind on Llama-3.2-1B cut to MP_LAYERS layers (f32 compute)
+    over a 2 x 2 ("data", "model") mesh, the first batch's gradients and
+    MP_STEPS steps; then the state resharded 2 x 2 -> 4 x 1 -> 2 x 2 with
+    ``elastic``, each leaf gathered and compared.  Rank 0 last runs the
+    one-process step on the same inputs and compares."""
+    import datetime
+
+    import torch.distributed as dist
+    rank, world, store, out_dir = sys.argv[1:5]
+    rank, world = int(rank), int(world)
+    sys.path.insert(0, SRC)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.distributed import elastic
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import steps as R
+    from repro_torch.tree import leaves, paths
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{store}", rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=SPMD_INIT_S))
+    launch_mesh.gloo_cuda_all_gather()
+    mesh = launch_mesh.make_mesh((2, 2), ("data", "model"), "cuda")
+    cfg = dataclasses.replace(cut_config(get_config("llama3.2-1b"),
+                                         MP_LAYERS), compute_dtype="float32")
+    shape = ShapeConfig("train_4k", MP_SEQ, MP_BATCH, "train")
+    step, _, in_sh, out_sh, cfg = dryrun.build_step_and_shardings(
+        cfg, shape, mesh, microbatches=1, param_mode="fsdp")
+    run = sh.sharded(step, mesh, tuple(in_sh.values()), out_sh)
+    state = R.init_train_state(cfg, SEED, device=dev)
+    batches = dense_batches(cfg, dev, MP_STEPS, b=MP_BATCH, s=MP_SEQ)
+    res = {"backend": str(dist.get_backend()), "mesh": "2x2"}
+    t0 = time.perf_counter()
+    dstate = sh.redistribute(state, in_sh["state"])
+    with sh.use_mesh(mesh):
+        loss_m, _, grads_m = R.loss_and_grads(
+            dstate["params"], cfg, sh.redistribute(batches[0],
+                                                   in_sh["batch"]))
+    loss_m = loss_m.full_tensor().item()
+    grads_m = sh.gather(grads_m)           # a collective: every rank
+    res["grads_s"] = time.perf_counter() - t0
+    if rank:
+        del grads_m, state
+    losses, steps_ms = [], []
+    for b in batches:
+        t1 = time.perf_counter()
+        dstate, metrics = run(dstate, b)
+        torch.cuda.synchronize()
+        steps_ms.append((time.perf_counter() - t1) * 1e3)
+        losses.append(metrics["loss"].to_local().item())
+    res.update(losses=losses, steps_ms=steps_ms,
+               placements={p: str(s.placements) for p, s in zip(
+                   paths(in_sh["state"]["params"]),
+                   leaves(in_sh["state"]["params"]))
+                   if "blocks/0" in p or "/" not in p})
+    # Elastic: 2 x 2 -> 4 x 1 -> 2 x 2, every leaf gathered and compared.
+    mesh41 = launch_mesh.make_mesh((4, 1), ("data", "model"), "cuda")
+    res["validate_2x2_to_4x1"] = elastic.validate_elastic_resize(
+        mesh, mesh41, MP_BATCH)
+
+    def moved(st, to):
+        return {"params": elastic.reshard_params(st["params"], to),
+                "opt": elastic.reshard_state(st["opt"], to)}
+
+    s41 = moved(dstate, mesh41)
+    s22 = moved(s41, mesh)
+    bits, n_leaves = True, 0
+    for a, b, c in zip(leaves(dstate), leaves(s41), leaves(s22),
+                       strict=True):
+        fa, fb, fc = a.full_tensor(), b.full_tensor(), c.full_tensor()
+        bits &= bool(torch.equal(fa, fb) and torch.equal(fa, fc)
+                     and fa.dtype == fc.dtype)
+        n_leaves += 1
+    res.update(reshard_bits=bits, reshard_leaves=n_leaves,
+               back_placements=all(
+                   x.placements == y.placements
+                   for x, y in zip(leaves(dstate), leaves(s22))))
+    final = sh.gather(dstate)
+    dist.barrier()
+    if rank:
+        del final
+    else:
+        # The one-process step on the same state and batches.
+        loss_1, _, grads_1 = R.loss_and_grads(state["params"], cfg,
+                                              batches[0])
+        res["grad_loss"] = [loss_m, loss_1.item()]
+        gaps = []
+        for p, g_m, g_1 in zip(paths(grads_1), leaves(grads_m),
+                               leaves(grads_1), strict=True):
+            d = (g_m - g_1).abs()
+            ok = bool(torch.allclose(g_m, g_1, **DENSE_GRAD_TOL))
+            gaps.append((p, d.max().item(), g_1.abs().max().item(), ok))
+        res["grads"] = gaps
+        del grads_m, grads_1
+        one = R.make_train_step(cfg, adamw.AdamWConfig())
+        st, losses_1 = state, []
+        for b in batches:
+            st, m = one(st, b)
+            losses_1.append(m["loss"].item())
+        res["losses_one"] = losses_1
+        res["state_max_abs"] = max(
+            (x.float() - y.float()).abs().max().item()
+            for x, y in zip(leaves(final), leaves(st), strict=True))
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w",
+              encoding="utf-8") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def mesh_step(card) -> dict:
+    """MP_RANKS processes of ``mesh_child`` on the one card over gloo,
+    their results held: the mesh's gradients against the one-process
+    step's at the dense trainer's gradient bar, its losses at the f32
+    bar, and the 2 x 2 -> 4 x 1 -> 2 x 2 reshard bit-equal.  Ranks sharing
+    a card measure correctness, not scaling."""
+    from repro_torch.kernels import _cuda
+    out_dir = _cuda.BUILD_DIR / "model_parallel" / "mesh"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    code = (f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke; "
+            "sys.exit(chip_smoke.mesh_child())")
+    sys.stdout.flush()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code, str(r), str(MP_RANKS),
+         str(out_dir / "store"), str(out_dir)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(MP_RANKS)]
+    logs = []
+    try:
+        for p in procs:
+            left = max(1.0, t0 + MP_JOIN_S - time.perf_counter())
+            logs.append(p.communicate(timeout=left)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode:
+            raise AssertionError(f"mesh rank {r} exited {p.returncode}:\n"
+                                 f"{log[-4000:]}")
+    wall = time.perf_counter() - t0
+    with open(out_dir / "rank0.json", encoding="utf-8") as f:
+        res = json.load(f)
+    worst = max(d for _, d, _, _ in res["grads"])
+    bad = [p for p, _, _, ok in res["grads"] if not ok]
+    loss_gap = max(abs(a - b) for a, b in zip(res["losses"],
+                                              res["losses_one"]))
+    loss_ok = all(math.isclose(a, b, rel_tol=DENSE_OPT_TOL["rtol"],
+                               abs_tol=DENSE_OPT_TOL["atol"])
+                  for a, b in zip(res["losses"], res["losses_one"]))
+    print(f"mesh step: {MP_RANKS} ranks ({res['backend']}) on the one card, "
+          f"2 x 2 (data, model); llama3.2-1b cut to {MP_LAYERS} layers, f32 "
+          f"compute, batch {MP_BATCH} x {MP_SEQ}, fsdp; placements "
+          f"{res['placements']}")
+    print(f"mesh step: gradients of batch 0 vs the one-process step: loss "
+          f"{res['grad_loss'][0]:.7f} / {res['grad_loss'][1]:.7f}, max |d| "
+          f"{worst:.3e} over {len(res['grads'])} leaves (tol rtol "
+          f"{DENSE_GRAD_TOL['rtol']} atol {DENSE_GRAD_TOL['atol']}; "
+          f"outside: {bad}); losses {res['losses']} vs {res['losses_one']}"
+          f" (max |d| {loss_gap:.3e}, tol rtol {DENSE_OPT_TOL['rtol']}); "
+          f"state after {MP_STEPS} steps max |d| {res['state_max_abs']:.3e}"
+          f"; step host ms {[round(t, 1) for t in res['steps_ms']]}; "
+          f"gradients {res['grads_s']:.1f} s; ranks' wall {wall:.1f} s; "
+          f"{card}")
+    print(f"mesh step: reshard 2 x 2 -> 4 x 1 -> 2 x 2 of "
+          f"{res['reshard_leaves']} leaves bit-equal {res['reshard_bits']}, "
+          f"placements restored {res['back_placements']}; "
+          f"validate_elastic_resize(2x2 -> 4x1, batch {MP_BATCH}): "
+          f"{res['validate_2x2_to_4x1']}")
+    if bad or not loss_ok or not res["reshard_bits"] or \
+            not res["back_placements"]:
+        raise AssertionError(f"mesh step: gradients outside {bad}, losses "
+                             f"ok {loss_ok}, reshard bits "
+                             f"{res['reshard_bits']}")
+    return dict(grads_max_abs=worst, loss_gap=loss_gap, wall_s=wall,
+                steps_ms=res["steps_ms"])
+
+
+def dryrun_start() -> list:
+    """The DRYRUNS cells, each ``python -m repro_torch.launch.dryrun`` in
+    a process of its own (CPU, a fake group), started now."""
+    from repro_torch.kernels import _cuda
+    out = _cuda.BUILD_DIR / "model_parallel" / "dryrun"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [SRC] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]), CUDA_VISIBLE_DEVICES="")
+    return [(arch, shp, out, subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shp, *flags, "--out", str(out)], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for arch, shp, flags in DRYRUNS]
+
+
+def dryrun_finish(runs, t0) -> dict:
+    """Wait for the dry runs and print each cell's per-rank bytes."""
+    cells = {}
+    try:
+        for arch, shp, out, p in runs:
+            log = p.communicate(timeout=max(1.0, t0 + DRYRUN_S
+                                            - time.perf_counter()))[0]
+            if p.returncode:
+                raise AssertionError(f"dryrun --arch {arch} --shape {shp} "
+                                     f"exited {p.returncode}:\n{log[-3000:]}")
+            for mesh_name in ("16x16", "2x16x16"):
+                path = out / f"{arch}__{shp}__{mesh_name}.json"
+                if not path.exists():
+                    continue
+                with open(path, encoding="utf-8") as f:
+                    rec = json.load(f)
+                cells[f"{arch} {shp} {mesh_name}"] = rec
+                print(f"dryrun {arch} x {shp} x {mesh_name}: ok {rec['ok']}"
+                      f", run {rec['run_s']} s ({rec['run_layers']} layers, "
+                      f"1 of {rec['microbatches']} microbatches run); per "
+                      "rank " + ", ".join(
+                          f"{k} {v / 1e9:.4f} GB"
+                          for k, v in rec["per_rank_bytes"].items())
+                      + f", total {rec['per_rank_total'] / 1e9:.4f} GB, "
+                      f"fits 80 GB {rec['fits_card']} (CPU, fake group of "
+                      "512 ranks: placements, not the card)")
+    finally:
+        for *_, p in runs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return cells
+
+
+def model_parallel(dev, card, reset_counts, read_counts) -> dict:
+    """The model_parallel phase: the dry runs start in their own
+    processes; the 32k pruned prefill (the main path's launches); the
+    blockwise attention's parity; the 2 x 2 mesh step and reshard; then
+    the dry runs' cells."""
+    t0 = time.perf_counter()
+    runs = dryrun_start()
+    try:
+        longp = long_prefill(dev, card, reset_counts, read_counts)
+        attn = attention_parity(dev, card)
+        mesh = mesh_step(card)
+    finally:
+        cells = dryrun_finish(runs, t0)
+    if len(cells) != 3 or not all(c["ok"] for c in cells.values()):
+        raise AssertionError(f"dry run cells: "
+                             f"{ {k: c['ok'] for k, c in cells.items()} }")
+    worst = {KERNEL_OF[m]: h["max_abs"] for m, h in longp["hold"].items()}
+    return dict(launches=longp.pop("launches"), long_prefill=longp,
+                attention=attn, mesh=mesh, worst=worst,
+                dryrun={k: c["per_rank_total"] for k, c in cells.items()})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -4857,6 +5401,15 @@ def main() -> int:
         shard = sharded(dev, card, reset_counts, read_counts)
         done("sharded", t0)
         print(json.dumps({k: shard[k] for k in ("launches", "worst")}))
+        print(gpu_line())
+        return 0
+    if sys.argv[1:] == ["--model-parallel-only"]:
+        # A quick check of the model_parallel phase alone (no kernels
+        # line).
+        t0 = phase("model_parallel")
+        mp = model_parallel(dev, card, reset_counts, read_counts)
+        done("model_parallel", t0)
+        print(json.dumps({k: mp[k] for k in ("launches", "worst")}))
         print(gpu_line())
         return 0
 
@@ -5244,6 +5797,13 @@ def main() -> int:
         worst[name] = max(worst[name], err)
     done("sharded", t0)
 
+    # --------------------------------------------------- model parallel --
+    t0 = phase("model_parallel")
+    mp = model_parallel(dev, card, reset_counts, read_counts)
+    for name, err in mp["worst"].items():
+        worst[name] = max(worst[name], err)
+    done("model_parallel", t0)
+
     # ---------------------------------------------------------- summary --
     rows = []
     for kname, kspec in KERNELS.items():
@@ -5261,7 +5821,8 @@ def main() -> int:
                     "obs": observed["serving"]["launches"][kname]
                     + (observed["online"]["launches"]
                        if kname == "rowsplit_spmm" else 0),
-                    "sharded": shard["launches"].get(kname, 0)}
+                    "sharded": shard["launches"].get(kname, 0),
+                    "model_parallel": mp["launches"].get(kname, 0)}
         row = {
             "name": kname, "route": "cuda", "source": kspec["source"],
             "replaces": kspec["replaces"],
@@ -5279,6 +5840,9 @@ def main() -> int:
                 roof_fraction=roof_rows["merge_dB"]["roof_fraction"],
                 roof_bound_ms=roof_rows["merge_dB"]["roof_bound_ms"])
             row["power_law"] = power_law
+        if kname in ("merge_spmm", "rowsplit_spmm"):
+            row["long_prefill"] = mp["long_prefill"]["hold"][
+                kspec["method"]]
         if kname == "rowsplit_spmm":
             row["online"] = served_online
             row["sharded"] = {k: shard[k] for k in ("llama", "power_law",
@@ -5332,7 +5896,12 @@ def main() -> int:
           f"and cols in {SHARD_N} shards, the per-shard loop), its "
           f"{TRAIN_STEPS} training steps of each dim in {GRAD_SHARDS} "
           f"shards and its moe_groups={MOE_GROUPS} layer (the SPMD ranks' "
-          "launches are printed, not counted); roof_fraction: the "
+          "launches are printed, not counted); the model_parallel phase's "
+          f"pruned Llama prefill of 1 x {LONG_PREFILL} tokens and its "
+          f"{LONG_GEN} decode steps (long_prefill: layer 0's w1 at n = "
+          f"{LONG_PREFILL} f32 by each SpMM kernel, its ms, the 2*nnz*n "
+          "bound at 67 TFLOP/s and max |d| against the plain version); "
+          "roof_fraction: the "
           "compulsory bytes of ms "
           "(the reference's roofline models) over ms, as a fraction of the "
           "card's measured copy-scale roof, roof_bound_ms those bytes at "

@@ -1,13 +1,14 @@
 """Architecture registry: ``get_config(name)`` / ``get_smoke_config(name)``.
 
 The reference's ten architectures, selectable through ``--arch <id>`` in
-the launchers.
+the launchers, and the input-shape cells each runs (``SHAPES``,
+``shape_cells``).
 """
 from __future__ import annotations
 
 import importlib
 
-from .base import ModelConfig
+from .base import SHAPES, ModelConfig, ShapeConfig, TrainConfig
 
 _MODULES = {
     "olmoe-1b-7b": "olmoe_1b_7b",
@@ -24,6 +25,9 @@ _MODULES = {
 
 ARCHS = tuple(_MODULES)
 
+# long_500k needs sub-quadratic sequence mixing:
+SUBQUADRATIC = ("mixtral-8x22b", "mamba2-1.3b", "recurrentgemma-2b")
+
 
 def _module(name: str):
     if name not in _MODULES:
@@ -39,4 +43,14 @@ def get_smoke_config(name: str) -> ModelConfig:
     return _module(name).smoke_config()
 
 
-__all__ = ["ARCHS", "ModelConfig", "get_config", "get_smoke_config"]
+def shape_cells(arch: str) -> list[str]:
+    """The (arch x shape) cells that run for this arch: long_500k only
+    for the sub-quadratic ones."""
+    cells = ["train_4k", "prefill_32k", "decode_32k"]
+    if arch in SUBQUADRATIC:
+        cells.append("long_500k")
+    return cells
+
+
+__all__ = ["ARCHS", "SHAPES", "SUBQUADRATIC", "ModelConfig", "ShapeConfig",
+           "TrainConfig", "get_config", "get_smoke_config", "shape_cells"]

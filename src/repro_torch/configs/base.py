@@ -1,4 +1,5 @@
-"""Model architecture config (the reference's ``repro.configs.base``).
+"""Model architecture config, input-shape cells and the training config
+(the reference's ``repro.configs.base``).
 
 Every ported architecture gets a ``configs/<id>.py`` exporting ``CONFIG``
 (the published numbers) and ``smoke_config()`` (a reduced same-family
@@ -67,7 +68,8 @@ class ModelConfig:
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
 
-    # --- distribution (the reference's layout; unused by this port) -------
+    # --- distribution: the residual stream's layout and tensor parallelism
+    # under a mesh (``repro_torch.distributed.sharding.constrain``) -------
     residual_spec: tuple = ("dp", None, None)
     tp: bool = True
 
@@ -96,3 +98,36 @@ class ModelConfig:
         for pattern, reps in self.segments:
             out += list(pattern) * reps
         return out
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str               # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    seq_len: int = 2048
+    global_batch: int = 8
+    microbatches: int = 1        # gradient accumulation steps
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    remat: bool = True
+    seed: int = 0
+    # distributed-optimization tricks
+    grad_compression: str = "none"   # none | int8_ef
+    loss_chunk: int = 512            # vocab-chunked CE sequence chunk

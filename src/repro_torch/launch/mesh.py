@@ -8,8 +8,9 @@ Nothing tells a process of a cluster: under ``torchrun`` (``RANK``,
 environment, with the backend of :func:`pick_backend`, and puts rank
 ``r`` on ``cuda:{r % device_count}``; otherwise it is the one-rank mesh
 of this process, with no process group (sharded plans then run their
-per-shard loop).  The reference's production TPU meshes (16 x 16 chips,
-two pods) have no counterpart here.
+per-shard loop).  :func:`make_production_mesh` gives the reference's
+production meshes (16 x 16, two pods of them) over a ``fake`` process
+group, for the shape-only dry run.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import contextlib
 import datetime
 import io
 import os
+import warnings
 
 import torch
 import torch.distributed as dist
@@ -78,6 +80,74 @@ def make_local_mesh(model: int = 1, *, device_type: str) -> DeviceMesh:
                          f"axis {model}")
     return make_mesh((world // model, model), ("data", "model"),
                      device_type)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
+    """The reference's production meshes, 16 x 16 ``("data", "model")``
+    or 2 x 16 x 16 ``("pod", "data", "model")``, over a ``fake`` process
+    group of 256 or 512 ranks in this process, as rank 0: its collectives
+    move no data, so a step over this mesh runs shape-only
+    (``launch.dryrun``).  A fake group of another size is replaced; any
+    other group is refused.  The group is global to the process: run this
+    in a process of its own."""
+    import torch.testing._internal.distributed.fake_pg  # noqa: F401
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    world = 1
+    for n in shape:
+        world *= n
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise RuntimeError(
+                f"make_production_mesh: a {dist.get_backend()} group is up;"
+                " the production meshes take a fake group of their own "
+                "process")
+        if dist.get_world_size() != world:
+            dist.destroy_process_group()
+    if not dist.is_initialized():
+        dist.init_process_group("fake", rank=0, world_size=world,
+                                store=dist.HashStore())
+    return init_device_mesh("cpu", shape, mesh_dim_names=axes)
+
+
+_GLOO_CUDA_LIB: list = []
+
+
+def gloo_cuda_all_gather() -> None:
+    """Run DTensor's all-gathers through ``dist.all_gather_into_tensor``
+    in this process, for gloo groups whose ranks share a card.
+
+    On torch 2.11 with CUDA 12.8 on the H100, the functional all-gather
+    (``_c10d_functional.all_gather_into_tensor``, which DTensor calls for
+    every ``Shard`` → ``Replicate``) kills the process with SIGSEGV on a
+    gloo group over CUDA tensors, while ``dist.all_gather_into_tensor`` on
+    the same group and tensors is right; the functional all-reduce and
+    reduce-scatter are right too.  This registers, for the CUDA dispatch
+    key, a kernel of that op which makes the same all-gather through
+    ``dist.all_gather_into_tensor`` and returns the gathered tensor whole
+    (its ``wait_tensor`` then has nothing to wait for).  Only for
+    processes whose every group is gloo: it raises on any other backend.
+    Installed once; a second call does nothing."""
+    if _GLOO_CUDA_LIB:
+        return
+    from torch.distributed import distributed_c10d as c10d
+
+    def all_gather_into_tensor(inp, group_size, group_name):
+        group = c10d._resolve_process_group(group_name)
+        backend = dist.get_backend(group)
+        if backend != "gloo":
+            raise RuntimeError(f"gloo_cuda_all_gather: a {backend} group; "
+                               "this process's all-gathers are routed for "
+                               "gloo alone")
+        out = inp.new_empty((inp.shape[0] * group_size, *inp.shape[1:]))
+        dist.all_gather_into_tensor(out, inp.contiguous(), group=group)
+        return out
+
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    with warnings.catch_warnings():   # "overriding a registered kernel"
+        warnings.simplefilter("ignore")
+        lib.impl("all_gather_into_tensor", all_gather_into_tensor, "CUDA")
+    _GLOO_CUDA_LIB.append(lib)
 
 
 def rank() -> int:

@@ -9,8 +9,15 @@ device.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.distributed.sharding import (_fit, active_mesh, constrain,
+                                              pad, whole)
 
 # ---------------------------------------------------------------- norms ----
 
@@ -91,11 +98,11 @@ def causal_conv(x, conv, state=None):
     order, in x's dtype."""
     w = conv.shape[0]
     if state is None:
-        pad = F.pad(x, (0, 0, w - 1, 0))
+        xp = pad(x, (0, 0, w - 1, 0))
     else:
-        pad = torch.cat([state.to(x.dtype), x], dim=1)
-    new_state = pad[:, -(w - 1):] if w > 1 else None
-    out = sum(pad[:, i:i + x.shape[1]] * conv[i] for i in range(w))
+        xp = torch.cat([state.to(x.dtype), x], dim=1)
+    new_state = xp[:, -(w - 1):] if w > 1 else None
+    out = sum(xp[:, i:i + x.shape[1]] * conv[i] for i in range(w))
     return out, new_state
 
 
@@ -135,41 +142,199 @@ def _qkv(p, x, cfg):
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
         v = v + p["bv"].to(dt)
-    return (q.reshape(b, s, h, dh), k.reshape(b, s, kvh, dh),
-            v.reshape(b, s, kvh, dh))
+    # Under a mesh: heads over the model axis (TP), batch over dp; in pure
+    # FSDP mode heads stay whole and the batch spans every rank.
+    bt = "dp" if cfg.tp else "dpm"
+    ht = "model" if cfg.tp else None
+    mesh = active_mesh()
+
+    def heads(y, n, ht):
+        if mesh is not None:
+            # aten.view into heads has no DTensor rule for a width sharded
+            # across a head (the model axis not dividing n): the flat
+            # projection takes the heads' layout first.
+            y = constrain(y, bt, None, ht if _fit(mesh, n, ht) else None)
+        return constrain(y.reshape(b, s, n, dh), bt, None, ht, None)
+
+    # Nor has the view of q's heads into (kv, g) groups when the model
+    # axis splits q's heads but not kv's: q's heads then stay whole.
+    qt = ht if mesh is None or _fit(mesh, kvh, ht) else None
+    return heads(q, h, qt), heads(k, kvh, ht), heads(v, kvh, ht)
+
+
+# A (q, kv) block whose every key is masked for every query changes none
+# of the carry's bits (m stays, p is 0, alpha is 1 or the carry is 0), so
+# flash_attention skips it (tests/test_torch_flash.py holds the bits with
+# and without the skip).
+SKIP_MASKED_BLOCKS = True
+
+
+def _attend_block(q, k, v, qpos, kpos, carry, *, scale, window, softcap):
+    """Online-softmax update for one (q-chunk, kv-chunk) pair (the
+    reference's ``_attend_block``).  q (b, cq, kv, g, dh); k/v (b, ck, kv,
+    dh); positions (cq,), (ck,); carry = (m, l, acc) with shapes (b, kv,
+    g, cq[, dh]).  Scores in f32 from the inputs' exact values, p cast to
+    v's dtype before PV, sums in f32.  The isfinite guards give the
+    reference's values; their untaken sides are kept finite, so no NaN
+    reaches a gradient."""
+    m, l, acc = carry
+    s = torch.einsum("bqkgd,bskd->bkgqs", q.float(), k.float()) * scale
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    mask = qpos[:, None] >= kpos[None, :]
+    if window is not None:
+        mask &= kpos[None, :] > (qpos[:, None] - window)
+    s = torch.where(mask, s, float("-inf"))
+    m_new = torch.maximum(m, s.amax(-1))
+    live = torch.isfinite(m_new)
+    p = torch.exp(s - torch.where(live, m_new, 0.0)[..., None])
+    p = torch.where(live[..., None], p, 0.0)
+    alpha = torch.exp(torch.where(torch.isfinite(m), m - m_new,
+                                  float("-inf")))
+    l = l * alpha + p.sum(-1)
+    acc = acc * alpha[..., None] + torch.einsum(
+        "bkgqs,bskd->bkgqd", p.to(v.dtype).float(), v.float())
+    return m_new, l, acc
+
+
+def _attend_q_chunk(q_blk, k_win, v_win, *, qpos0, start, kv_chunk,
+                    scale, window, softcap, checkpointed):
+    """One query chunk against its key span: the online softmax over the
+    span's kv chunks, each chunk's step checkpointed under grad; returns
+    (b, cq, h, dh) in q's dtype."""
+    b, cq, kvh, g, dh = q_blk.shape
+    dev = q_blk.device
+    qpos = qpos0 + torch.arange(cq, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    carry = (torch.full((b, kvh, g, cq), float("-inf"), **f32),
+             torch.zeros((b, kvh, g, cq), **f32),
+             torch.zeros((b, kvh, g, cq, dh), **f32))
+    for ki in range(k_win.shape[1] // kv_chunk):
+        k0 = start + ki * kv_chunk
+        if SKIP_MASKED_BLOCKS and (
+                k0 > qpos0 + cq - 1 or
+                (window is not None and k0 + kv_chunk - 1 <= qpos0 - window)):
+            continue
+        sl = slice(ki * kv_chunk, (ki + 1) * kv_chunk)
+        kpos = k0 + torch.arange(kv_chunk, device=dev)
+        step = functools.partial(_attend_block, scale=scale, window=window,
+                                 softcap=softcap)
+        if checkpointed:
+            carry = checkpoint(step, q_blk, k_win[:, sl], v_win[:, sl], qpos,
+                               kpos, carry, use_reentrant=False)
+        else:
+            carry = step(q_blk, k_win[:, sl], v_win[:, sl], qpos, kpos,
+                         carry)
+    _, l, acc = carry
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    # (b, kv, g, cq, dh) -> (b, cq, kv*g, dh)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, cq, kvh * g, dh).to(
+        q_blk.dtype)
+
+
+def flash_attention(q, k, v, *, q_offset: int = 0, window: int | None = None,
+                    q_chunk: int = 512, kv_chunk: int = 512,
+                    softcap: float = 0.0) -> torch.Tensor:
+    """Causal blockwise attention (the reference's ``flash_attention``):
+    q (b, sq, h, dh), k/v (b, skv, kv, dh) → (b, sq, h, dh) in q's dtype.
+
+    An online softmax over (q_chunk, kv_chunk) blocks, so no tensor grows
+    with sq · skv.  ``q_offset``: the absolute position of q[0].
+    ``window`` (sliding or local attention): query t sees keys t - window
+    + 1 … t, and each query chunk fetches only the span of kv_chunk ·
+    ⌈(window + q_chunk) / kv_chunk⌉ keys that ends with it.  A block whose
+    every key is masked is skipped (``SKIP_MASKED_BLOCKS``).  Under grad,
+    each query chunk and each of its kv steps is checkpointed
+    (non-reentrant), so the backward rebuilds one block's scores at a time
+    (the reference's two ``jax.checkpoint``)."""
+    b, sq, h, dh = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = dh ** -0.5
+    q_chunk = min(q_chunk, sq)
+    kv_chunk = min(kv_chunk, skv)
+    if sq % q_chunk:
+        raise AssertionError((sq, q_chunk))
+    qg = q.reshape(b, sq, kvh, g, dh)
+    span = skv
+    if window is not None:
+        span = min(kv_chunk * -(-(window + q_chunk) // kv_chunk), skv)
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    outs = []
+    for qi in range(sq // q_chunk):
+        start = 0
+        if window is not None:
+            start = min(max(q_offset + (qi + 1) * q_chunk - span, 0),
+                        skv - span)
+        fn = functools.partial(
+            _attend_q_chunk, qpos0=q_offset + qi * q_chunk, start=start,
+            kv_chunk=kv_chunk, scale=scale, window=window, softcap=softcap,
+            checkpointed=grad)
+        args = (qg[:, qi * q_chunk:(qi + 1) * q_chunk],
+                k[:, start:start + span], v[:, start:start + span])
+        outs.append(checkpoint(fn, *args, use_reentrant=False) if grad
+                    else fn(*args))
+    return torch.cat(outs, dim=1)
+
+
+def attention_chunk(s: int) -> int:
+    """The reference's flash tile for a prefill of ``s`` tokens: 1024 up
+    to 8192 tokens, 512 above (its score block bounded on 16 GiB)."""
+    return 1024 if s <= 8192 else 512
 
 
 def causal_attention(q, k, v, *, softcap: float = 0.0,
                      window: int | None = None) -> torch.Tensor:
-    """Causal GQA attention over a whole prefill.  q (b, s, h, dh), k/v
-    (b, s, kv, dh) → (b, s, h, dh) in q's dtype.  ``window`` (sliding or
-    local attention) also masks the keys ``window`` or more positions
-    back: query t sees keys t - window + 1 … t.
+    """Causal GQA attention over a whole prefill: :func:`flash_attention`
+    at the reference's chunk for the length (:func:`attention_chunk`).
+    q (b, s, h, dh), k/v (b, s, kv, dh) → (b, s, h, dh) in q's dtype.  A
+    length past one chunk that is not a multiple of it is padded at the
+    end to one (the reference asserts instead): causality masks the
+    padded keys from every real query, and the padded queries' rows are
+    dropped."""
+    s = q.shape[1]
+    c = attention_chunk(s)
+    extra = -s % c if s > c else 0
+    if extra:
+        q, k, v = (F.pad(t, (0, 0, 0, 0, 0, extra)) for t in (q, k, v))
+    out = flash_attention(q, k, v, softcap=softcap, window=window,
+                          q_chunk=c, kv_chunk=c)
+    return out[:, :s] if extra else out
 
-    The reference's blockwise online softmax with one (query, key) block:
-    scores in f32 from the inputs' exact f32 values, p cast to v's dtype
-    before PV, the sum of p in f32.
-    """
-    b, s, h, dh = q.shape
-    kvh = k.shape[2]
-    g = h // kvh
-    qg = q.reshape(b, s, kvh, g, dh)
-    sc = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) \
-        * dh ** -0.5
-    if softcap:
-        sc = softcap * torch.tanh(sc / softcap)
-    pos = torch.arange(s, device=q.device)
-    mask = pos[:, None] >= pos[None, :]
-    if window is not None:
-        mask &= pos[None, :] > pos[:, None] - window
-    sc = torch.where(mask, sc, float("-inf"))
-    m = sc.amax(-1, keepdim=True)
-    p = torch.exp(sc - m)
-    denom = p.sum(-1)
-    acc = torch.einsum("bkgqs,bskd->bkgqd", p.to(v.dtype).float(), v.float())
-    out = acc / torch.clamp(denom, min=1e-30)[..., None]
-    # (b, kv, g, s, dh) -> (b, s, kv*g, dh)
-    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, dh).to(q.dtype)
+
+def _prefill_attention(q, k, v, *, softcap, window):
+    """:func:`causal_attention`; under a mesh, on each rank's own part.
+    Attention is independent across batch rows and heads, and ``_qkv``
+    placed q, k and v alike over both with whole sequences, so each rank
+    attends over its own rows and heads, and the result takes q's
+    placements (otherwise DTensor would dispatch every op of every
+    block)."""
+    if not isinstance(q, DTensor):
+        return causal_attention(q, k, v, softcap=softcap, window=window)
+    if not q.placements == k.placements == v.placements:
+        raise ValueError(f"attention over a mesh: q, k, v placed "
+                         f"{q.placements}, {k.placements}, {v.placements}")
+    out = causal_attention(q.to_local(), k.to_local(), v.to_local(),
+                           softcap=softcap, window=window)
+    return DTensor.from_local(out, q.device_mesh, q.placements,
+                              shape=q.shape, stride=q.stride())
+
+
+def _merge_heads(out):
+    """(b, s, h, dh) → (b, s, h·dh).  Under a mesh on each rank's part, the
+    heads' shards becoming the width's, so the backward's view back into
+    heads gets its gradient in the heads' layout (aten.view into heads has
+    no DTensor rule for a width sharded across a head)."""
+    b, s, h, dh = out.shape
+    if not isinstance(out, DTensor):
+        return out.reshape(b, s, h * dh)
+    out = whole(out, 3)                 # each head's width on one rank
+    local = out.to_local()
+    return DTensor.from_local(
+        local.reshape(*local.shape[:2], -1), out.device_mesh,
+        out.placements, shape=torch.Size((b, s, h * dh)),
+        stride=(s * h * dh, h * dh, 1))
 
 
 def decode_attention(q, k_cache, v_cache, pos, *, softcap: float = 0.0,
@@ -188,6 +353,16 @@ def decode_attention(q, k_cache, v_cache, pos, *, softcap: float = 0.0,
     b, _, h, dh = q.shape
     s_cache, kvh = k_cache.shape[1], k_cache.shape[2]
     g = h // kvh
+    full_span = window is None or window >= s_cache
+    if full_span:
+        # Under a mesh, flash-decoding: the cache stays sharded by
+        # sequence, and the softmax over it reduces partial sums.
+        k_cache = constrain(k_cache, "dp", "model", None, None)
+        v_cache = constrain(v_cache, "dp", "model", None, None)
+        # The model axis holds the sequence here, so q's heads come whole
+        # (the einsum's flattening of two sharded dims, aten.view, has no
+        # DTensor rule on torch 2.11).
+        q = whole(q, 2)
     qg = q.reshape(b, kvh, g, dh)
     sc = torch.einsum("bkgd,bskd->bkgs", qg.float(), k_cache.float()) \
         * dh ** -0.5
@@ -195,15 +370,19 @@ def decode_attention(q, k_cache, v_cache, pos, *, softcap: float = 0.0,
         sc = softcap * torch.tanh(sc / softcap)
     kpos = torch.arange(s_cache, device=q.device)
     mask = kpos[None, :] <= pos[:, None]                     # (b, S)
-    if window is not None and window < s_cache:
+    if not full_span:
         mask &= kpos[None, :] > pos[:, None] - window
     sc = torch.where(mask[:, None, None], sc, float("-inf"))
+    if full_span:
+        sc = constrain(sc, "dp", None, None, "model")
     m = sc.amax(-1, keepdim=True)
     p = torch.exp(sc - m)
     p = p / p.sum(-1, keepdim=True)
     out = torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype).float(),
                        v_cache.float())
-    return out.reshape(b, 1, h, dh).to(q.dtype)
+    # Under a mesh the kv heads come whole first: merging a sharded dim
+    # into the next (aten.view) has no DTensor rule on torch 2.11.
+    return whole(out, 1).reshape(b, 1, h, dh).to(q.dtype)
 
 
 def attention_apply(p, x, cfg, *, positions=None, cache=None, pos=None):
@@ -230,7 +409,7 @@ def attention_apply(p, x, cfg, *, positions=None, cache=None, pos=None):
     softcap = cfg.attn_logit_softcap
     window = None if cfg.attention == "full" else cfg.window
     if cache is None:
-        out = causal_attention(q, k, v, softcap=softcap, window=window)
+        out = _prefill_attention(q, k, v, softcap=softcap, window=window)
         new_cache = {"k": k, "v": v}
     elif s == 1:
         rows = torch.arange(b, device=x.device)
@@ -241,11 +420,11 @@ def attention_apply(p, x, cfg, *, positions=None, cache=None, pos=None):
                                window=window)
         new_cache = {"k": kc, "v": vc}
     else:
-        out = causal_attention(q, k, v, softcap=softcap, window=window)
-        pad = (0, 0, 0, 0, 0, cache["k"].shape[1] - s)
-        new_cache = {"k": F.pad(k, pad), "v": F.pad(v, pad)}
-    out = out.reshape(b, s, -1) @ p["wo"].to(cfg.cdtype)
-    return out, new_cache
+        out = _prefill_attention(q, k, v, softcap=softcap, window=window)
+        widths = (0, 0, 0, 0, 0, cache["k"].shape[1] - s)
+        new_cache = {"k": pad(k, widths), "v": pad(v, widths)}
+    out = _merge_heads(out) @ p["wo"].to(cfg.cdtype)
+    return constrain(out, *cfg.residual_spec), new_cache
 
 
 # ----------------------------------------------------------------- MLPs ----
@@ -272,4 +451,8 @@ def mlp_apply(p, x, cfg) -> torch.Tensor:
         h = F.silu(x @ p["w1"].to(dt)) * (x @ p["w3"].to(dt))
     else:
         h = F.gelu(x @ p["w1"].to(dt), approximate="tanh")
-    return h @ p["w2"].to(dt)
+    if cfg.tp:
+        h = constrain(h, "dp", None, "model")     # the ff dim over model
+    else:
+        h = constrain(h, "dpm", None, None)
+    return constrain(h @ p["w2"].to(dt), *cfg.residual_spec)

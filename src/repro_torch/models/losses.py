@@ -14,6 +14,8 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import whole
+
 
 def logits(h, unembed, logit_softcap: float = 0.0) -> torch.Tensor:
     """h (..., d), unembed (v, d) → float32 logits (..., v): the
@@ -29,7 +31,10 @@ def logits(h, unembed, logit_softcap: float = 0.0) -> torch.Tensor:
 
 
 def _chunk_nll(hc, unembed, yc, mc, logit_softcap):
-    logits_c = logits(hc, unembed, logit_softcap)
+    # Over a mesh the vocab dim is made whole first: aten.gather along a
+    # vocab sharded across ranks has no DTensor rule that survives the
+    # squeeze after it.
+    logits_c = whole(logits(hc, unembed, logit_softcap), -1)
     lse = torch.logsumexp(logits_c, dim=-1)
     gold = torch.gather(logits_c, -1, yc[..., None].long())[..., 0]
     nll = (lse - gold) * mc

@@ -20,8 +20,10 @@ holds ``tokens`` (b, s) or, for embedding inputs, ``embeds`` (b, s, d).
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import constrain
 from repro_torch.tree import paths
 
 from . import layers as L
@@ -125,6 +127,10 @@ def block_apply(p, btype, x, cfg, *, positions=None, cache=None, pos=None,
     _check_btype(btype)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = L.norm_apply(p["ln1"], x, cfg.norm)
+    # Under a mesh the norm outputs of attention blocks take the residual
+    # layout, so the backward's partial sums over the model axis are
+    # reduced here, in the compute dtype (the reference's constraint).
+    rs = cfg.residual_spec
     if btype in ("ssd", "rglru"):
         state = cache if (cache is not None and x.shape[1] == 1) else None
         if btype == "ssd":
@@ -134,12 +140,13 @@ def block_apply(p, btype, x, cfg, *, positions=None, cache=None, pos=None,
         x = x + out
         h = L.norm_apply(p["ln2"], x, cfg.norm)
         return x + L.mlp_apply(p["mlp"], h, cfg), new_cache, aux
+    h = constrain(h, *rs)
     attn_out, new_cache = L.attention_apply(p["attn"], h, cfg,
                                             positions=positions, cache=cache,
                                             pos=pos)
     if not cfg.parallel_block:
         x = x + attn_out
-        h = L.norm_apply(p["ln2"], x, cfg.norm)
+        h = constrain(L.norm_apply(p["ln2"], x, cfg.norm), *rs)
     if btype == "moe":
         ffn_out, aux = MOE.moe_apply(p["moe"], h, cfg, use_kernel=use_kernel)
     else:
@@ -157,6 +164,7 @@ def forward(params, cfg, h, *, positions=None, caches=None, pos=None,
     the forward and rebuilt in the backward (the reference's
     ``jax.checkpoint`` of each scan step, which is one block for
     single-block patterns).  ``use_kernel`` goes to every MoE block."""
+    h = constrain(h, *cfg.residual_spec)
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     new_caches = []
     for i, (btype, lp) in enumerate(zip(cfg.block_types(),
@@ -168,6 +176,7 @@ def forward(params, cfg, h, *, positions=None, caches=None, pos=None,
                                   use_reentrant=False, **kw)
         else:
             h, nc, a = block_apply(lp, btype, h, cfg, **kw)
+        h = constrain(h, *cfg.residual_spec)
         new_caches.append(nc)
         aux_total = aux_total + a
     return h, new_caches, aux_total
@@ -179,7 +188,8 @@ def embed_inputs(params, cfg, batch: dict, *, positions=None):
     ``embeds`` as given; plus sinusoidal positions (``positions``,
     default 0 … s-1) when ``rope_theta`` is 0."""
     if cfg.input_mode == "tokens":
-        h = params["embed"][batch["tokens"]].to(cfg.cdtype)
+        h = F.embedding(batch["tokens"], _vocab_table(params["embed"], cfg))
+        h = h.to(cfg.cdtype)
         if cfg.embed_scale:
             h = h * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.cdtype)
     else:
@@ -191,8 +201,19 @@ def embed_inputs(params, cfg, batch: dict, *, positions=None):
     return h
 
 
+def _vocab_table(w, cfg):
+    """A (vocab, d) table as the lookup and the logits use it: under a
+    mesh the vocab whole on every rank, d over the model axis (TP).  Each
+    use redistributes on its own, so each use's gradient comes back in the
+    param's placements: a tied table's two gradients then add in one
+    layout (torch 2.11's DTensor cannot add a Shard gradient to a Partial
+    one: "redistribute from S(0) to P(sum)")."""
+    return constrain(w, None, "model" if cfg.tp else None)
+
+
 def unembed_matrix(params, cfg) -> torch.Tensor:
-    return params["unembed"] if "unembed" in params else params["embed"]
+    return _vocab_table(params["unembed"] if "unembed" in params
+                        else params["embed"], cfg)
 
 
 def _logits(params, cfg, h) -> torch.Tensor:

@@ -18,11 +18,20 @@ Load balance is perfect by construction whatever the routing skew.
 1`` (and ``b·s`` divisible by ``g``) the tokens split into ``g`` groups,
 each sorted, capped and scattered on its own (the reference's
 hierarchical dispatch), their expert GEMMs folded into one launch.
+
+Over a mesh (``distributed.sharding``) the block runs with its tokens and
+expert weights whole on every rank: its routing, sort and scatter use ops
+that DTensor has no sharding rule for (aten.index_add_ first), so the
+reference's constraint of the grouped tokens over dp has no counterpart
+here, and each rank computes the one-process block's capacity and drops.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
+
+from repro_torch.distributed.sharding import on_every_rank
 
 from repro_torch.kernels import ops as _ops
 
@@ -173,6 +182,10 @@ def moe_apply(p, x, cfg, *, tt: int = TT, use_kernel: bool | None = None,
     ``sort`` MoE on a CUDA tensor, the batched matmul on the CPU.
     ``impl`` goes to ``ops.moe_group_gemm`` when the kernel path runs
     (``"torch"``: its plain version on any device)."""
+    if isinstance(x, DTensor):
+        return on_every_rank(moe_apply, p, x, cfg, tt=tt,
+                             use_kernel=use_kernel,
+                             capacity_factor=capacity_factor, impl=impl)
     if use_kernel is None:
         use_kernel = cfg.moe_impl == "sort" and x.is_cuda
     b, s, d = x.shape

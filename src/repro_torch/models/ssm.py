@@ -14,6 +14,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from torch.distributed.tensor import DTensor
+
+from repro_torch.distributed.sharding import on_every_rank
+from repro_torch.distributed.sharding import pad as zpad
+
 from .layers import causal_conv, normal_init
 
 
@@ -118,7 +123,14 @@ def ssd_scan_chunked(x, dt, a, b, c, *, chunk: int, mac_dtype=None):
 def ssd_apply(p, u, cfg, *, state=None):
     """u (b, s, d) → (out, new_state).  A prefill or training:
     ``state=None``.  Decode: s == 1 with state = {"conv": (b, w-1, c),
-    "ssm": (b, H, P, N)}."""
+    "ssm": (b, H, P, N)}.
+
+    Over a mesh the block runs with its operands whole on every rank: the
+    backward of its scan's cumulative sums calls aten.flip, which has no
+    DTensor sharding rule (torch 2.11)."""
+    if isinstance(u, DTensor):
+        return on_every_rank(
+            lambda p_, u_, st: ssd_apply(p_, u_, cfg, state=st), p, u, state)
     z, xbc, dt, din, n, heads = _split_proj(p, u, cfg)
     hd = cfg.ssm_head_dim
     a = -torch.exp(p["a_log"])
@@ -134,10 +146,10 @@ def ssd_apply(p, u, cfg, *, state=None):
         chunk = min(cfg.ssm_chunk, s)
         pad = (-s) % chunk
         y, ssm_state = ssd_scan_chunked(
-            F.pad(xh.to(torch.float32), (0, 0, 0, 0, 0, pad)),
-            F.pad(dt, (0, 0, 0, pad)), a,
-            F.pad(b.to(torch.float32), (0, 0, 0, pad)),
-            F.pad(c.to(torch.float32), (0, 0, 0, pad)), chunk=chunk,
+            zpad(xh.to(torch.float32), (0, 0, 0, 0, 0, pad)),
+            zpad(dt, (0, 0, 0, pad)), a,
+            zpad(b.to(torch.float32), (0, 0, 0, pad)),
+            zpad(c.to(torch.float32), (0, 0, 0, pad)), chunk=chunk,
             mac_dtype=cfg.cdtype)
         y = y[:, :s]
         y = y + p["d_skip"][None, None, :, None] * xh.to(torch.float32)

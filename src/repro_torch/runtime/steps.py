@@ -25,6 +25,7 @@ kernel on the transpose plans, ``dvals`` through the SDDMM kernel.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core import ExecutionConfig, SparseMatrix
 from repro_torch.models import model as M
@@ -33,7 +34,7 @@ from repro_torch.optim import adamw
 from repro_torch.optim import compression as gc
 from repro_torch.tree import leaves, tree_map, unflatten
 
-PARAM_MODES = ("fsdp", "zero1")
+PARAM_MODES = ("fsdp", "zero1", "fsdp2")
 GRAD_COMPRESSIONS = ("none", "int8_ef")
 
 
@@ -58,6 +59,10 @@ def loss_and_grads(params, cfg, batch, *, remat: bool = True,
                                remat=remat, loss_chunk=loss_chunk)
     grads = torch.autograd.grad(loss, flat, allow_unused=True,
                                 materialize_grads=True)
+    # Over a mesh each gradient takes its param's placements (its partial
+    # sums reduced and scattered, as FSDP does).
+    grads = [g.redistribute(p.device_mesh, p.placements)
+             if isinstance(p, DTensor) else g for g, p in zip(grads, flat)]
     return (loss.detach(), {k: v.detach() for k, v in aux.items()},
             unflatten(params, grads))
 
@@ -74,10 +79,13 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, *,
     with ``microbatches > 1`` they arrive shaped (microbatches, local, s),
     the float32 gradients of the microbatches are summed and averaged, the
     loss averaged, and ``nll``/``aux`` are the last microbatch's.
-    ``param_mode``: ``"fsdp"`` (float32 params; AdamW on them) or
-    ``"zero1"`` (compute-dtype params, the float32 master in the optimizer
-    state).  The reference shards params, master and moments over its
-    mesh in either mode; on one card the two differ only in precision.
+    ``param_mode``: ``"fsdp"`` (float32 params; AdamW on them),
+    ``"fsdp2"`` (the same step; over a mesh the params take the pure-FSDP
+    placements) or ``"zero1"`` (compute-dtype params, the float32 master
+    in the optimizer state).  Over a mesh (``launch.dryrun.
+    build_step_and_shardings``) the state's leaves are DTensors placed by
+    ``distributed.sharding``; on one card the modes differ only in
+    precision.
     ``grad_compression="int8_ef"`` passes the gradients through
     ``compression.roundtrip`` with the residual in the state, a scale for
     each of the reference's stacked tensors (``M.stack_keys``).

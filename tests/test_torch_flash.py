@@ -139,3 +139,155 @@ def test_plain_is_differentiable_on_cpu():
     ops.flash_attention(q, k, v).sum().backward()
     assert all(t.grad is not None and torch.isfinite(t.grad).all()
                for t in (q, k, v))
+
+
+# ---------------------------------------------------------------------------
+# The model path's blockwise attention (``layers.flash_attention``) against
+# the reference's ``repro.models.layers.flash_attention`` (plain JAX, no
+# Pallas) on the same numpy inputs: f32 at 2e-5, gradients at the
+# reference's gradient bar (tests/test_spmm_grad.py:23).
+
+import jax  # noqa: E402
+
+from repro.models import layers as jlayers  # noqa: E402
+
+GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
+# The cases whose gradients are held too (a window, an offset, a softcap).
+GRAD_CASES = ("full", "swa96_offset", "softcap")
+# (window, softcap, q_offset, sq): the full causal case, sliding window
+# 96 (a span of 192 keys a 64-query chunk, its first chunk masked for
+# every query), a logit softcap, and a continuation whose 128 queries sit
+# at positions 128-255 of a 256-key cache.
+BLOCKWISE = {"full": (None, 0.0, 0, 256), "swa96": (96, 0.0, 0, 256),
+             "softcap": (None, 30.0, 0, 256),
+             "full_offset": (None, 0.0, 128, 128),
+             "swa96_offset": (96, 0.0, 128, 128),
+             "softcap_offset": (None, 30.0, 128, 128)}
+
+
+@pytest.fixture
+def one_thread():
+    """Small blocks: one intra-op thread (many threads only wait on each
+    other at these sizes when the host is shared)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _blockwise_inputs(sq, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((2, sq, 4, 32)).astype(np.float32)
+    k = rng.standard_normal((2, 256, 2, 32)).astype(np.float32)
+    v = rng.standard_normal((2, 256, 2, 32)).astype(np.float32)
+    return q, k, v
+
+
+@pytest.mark.parametrize("case", list(BLOCKWISE))
+def test_blockwise_matches_reference(case, one_thread):
+    window, softcap, off, sq = BLOCKWISE[case]
+    q, k, v = _blockwise_inputs(sq, seed=len(case))
+    kw = dict(q_offset=off, window=window, softcap=softcap, q_chunk=64,
+              kv_chunk=64)
+    ts = [torch.from_numpy(x).requires_grad_(case in GRAD_CASES)
+          for x in (q, k, v)]
+    got = layers.flash_attention(*ts, **kw)
+    jin = [jnp.asarray(x) for x in (q, k, v)]
+    if case not in GRAD_CASES:
+        want = jlayers.flash_attention(*jin, **kw)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=2e-5, atol=2e-5)
+        return
+    # Gradients of sum(out * w) for q, k and v, from one trace.
+    want, vjp = jax.vjp(lambda *a: jlayers.flash_attention(*a, **kw), *jin)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=2e-5, atol=2e-5)
+    w = np.random.default_rng(7).standard_normal(want.shape).astype(
+        np.float32)
+    (got * torch.from_numpy(w)).sum().backward()
+    for name, t, j in zip("qkv", ts, vjp(jnp.asarray(w))):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(j),
+                                   **GRAD_TOL, err_msg=name)
+
+
+def test_blockwise_skip_of_masked_blocks_keeps_the_bits(monkeypatch,
+                                                       one_thread):
+    """Skipping a block whose every key is masked (above the diagonal, or
+    out of the window) leaves every bit of the output and the gradients."""
+    q, k, v = _blockwise_inputs(256, seed=3)
+
+    def run():
+        out = {}
+        for name, window in (("full", None), ("swa96", 96)):
+            ts = [torch.from_numpy(x).requires_grad_(True)
+                  for x in (q, k, v)]
+            o = layers.flash_attention(*ts, window=window, q_chunk=64,
+                                       kv_chunk=64)
+            (o * o).sum().backward()
+            out[name] = [o.detach()] + [t.grad for t in ts]
+        return out
+
+    skipped = run()
+    monkeypatch.setattr(layers, "SKIP_MASKED_BLOCKS", False)
+    every = run()
+    for name in skipped:
+        for a, b in zip(skipped[name], every[name]):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32)), \
+                name
+
+
+def test_blockwise_largest_tensor_is_a_block(one_thread):
+    """At s = 2048 with 512-chunks no tensor made inside the attention,
+    forward or backward, holds more than a few blocks' scores: its size is
+    O(b · h · q_chunk · kv_chunk), not the O(b · h · s²) of the whole
+    score matrix."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Largest(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.numel = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in (out if isinstance(out, (tuple, list)) else (out,)):
+                if isinstance(t, torch.Tensor):
+                    self.numel = max(self.numel, t.numel())
+            return out
+
+    b, s, h, kvh, dh, c = 1, 2048, 4, 2, 16, 512
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(b, s, n, dh, generator=g).requires_grad_(True)
+               for n in (h, kvh, kvh))
+    block = b * h * c * c
+    with Largest() as fwd:
+        out = layers.flash_attention(q, k, v, q_chunk=c, kv_chunk=c)
+    with Largest() as bwd:
+        out.sum().backward()
+    assert max(fwd.numel, bwd.numel) <= block, (fwd.numel, bwd.numel)
+    assert b * h * s * s == 16 * block
+    # The model path takes the reference's chunk: 1024 to 8192 tokens,
+    # 512 above.
+    assert [layers.attention_chunk(n) for n in (32, 8192, 8193, 32768)] \
+        == [1024, 1024, 512, 512]
+
+
+@pytest.mark.parametrize("window", [None, 96])
+def test_model_path_takes_a_ragged_length(window, one_thread):
+    """The model path's attention at a length past its 1024-chunk that is
+    no multiple of it (1100 tokens, padded to 2048 inside) against every
+    score of the prompt at once, f32."""
+    rng = np.random.default_rng(5)
+    q = torch.from_numpy(rng.standard_normal((1, 1100, 2, 16)).astype(
+        np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((1, 1100, 1, 16)).astype(
+        np.float32)) for _ in range(2))
+    got = layers.causal_attention(q, k, v, window=window)
+    sc = torch.einsum("bqgd,bskd->bgqs", q, k) * 16 ** -0.5
+    pos = torch.arange(1100)
+    mask = pos[:, None] >= pos[None, :]
+    if window is not None:
+        mask &= pos[None, :] > pos[:, None] - window
+    p = torch.softmax(sc.masked_fill(~mask, float("-inf")), dim=-1)
+    want = torch.einsum("bgqs,bskd->bqgd", p, v)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
