@@ -225,9 +225,17 @@ NVIDIA H100 (sm_90a) and the CUDA toolkit.  Phases, each timed:
               1e-4 / atol 1e-5 of the gradient's max); 2 ranks on the one card over gloo
               (``spmd_child``: each layer-0 matrix by rows and cols,
               forward and backward, the SPMD path against the loop path),
-              then ``torchrun --nproc-per-node 2 -m
-              repro_torch.launch.serve --prune-ffn 0.25 --mesh 2`` at full
-              width against the unsharded logits; the power law in 4 row
+              then ``serve_online`` over the 2 ranks in lockstep on
+              Llama-3.2-1B at full width (24 Poisson requests at the auto
+              rate, eager buckets over gloo; every served request's rows
+              against the unsharded eager forward of its bucket matrix
+              within the serving bars, every rank's bucket sequence the
+              leader's, 0 programs and 0 plans built after warmup, each
+              rank's row-split launches 48 a forward), then ``torchrun
+              --nproc-per-node 2 -m repro_torch.launch.serve --prune-ffn
+              0.25 --mesh 2`` at full width against the unsharded logits
+              and ``... --serve --mesh 2`` (24/24 ok, 0 recompiles, 0
+              plans built while serving); the power law in 4 row
               shards by the §5.4 rule (each shard's method, uniform,
               device ms against unsharded row-split and merge, C against
               the plain version and the unsharded merge C); an OLMoE-1B-7B MoE layer at
@@ -4303,6 +4311,9 @@ SHARD_GRAD_TOL = dict(rtol=1e-4, atol_of_max=1e-5)
 # A rendezvous, a collective or a rank that has not ended by then fails
 # the phase instead of eating the script's clock.
 SPMD_INIT_S, SPMD_JOIN_S, TORCHRUN_S = 120, 300, 420
+# Online serving over the SPMD ranks (and the serve CLI's default): 24
+# Poisson requests at the auto rate.
+MESH_ONLINE_REQUESTS = 24
 
 
 def grad_tol(want) -> dict:
@@ -4698,6 +4709,7 @@ def spmd_child() -> int:
                     max_abs=(x - y).abs().max().item(),
                     ok=bool(torch.allclose(x, y, **tol)))
             res["cases"].append(case)
+    res["online"] = spmd_online(mesh, dev, out_dir)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w",
               encoding="utf-8") as f:
         json.dump(res, f)
@@ -4705,14 +4717,67 @@ def spmd_child() -> int:
     return 0
 
 
+def spmd_online(mesh, dev, out_dir) -> dict:
+    """One rank of ``serve_online`` over ``mesh`` in lockstep (a
+    ``spmd_child`` stage): Llama-3.2-1B at full width from SEED, every
+    pruned-FFN weight in row shards, one a rank; what this rank built,
+    ran and launched, and on rank 0 the load's numbers, with every served
+    request's tokens, bucket, row, packed matrix and rows saved to
+    ``online_rows.pt`` beside the rank files."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import PlanPolicy, ShardSpec
+    from repro_torch.engine import EagerProgram
+    from repro_torch.kernels import rowsplit_spmm
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    cfg = get_config("llama3.2-1b")
+    params = M.init_params(cfg, SEED, dev)
+    policy = PlanPolicy(shards=ShardSpec(mesh=mesh, axis="data"))
+    before = rowsplit_spmm.LAUNCHES
+    t0 = time.perf_counter()
+    rep = serve.serve_online(cfg, params, KEEP, batch=SERVE_BATCH,
+                             prompt_len=SERVE_PROMPT,
+                             requests=MESH_ONLINE_REQUESTS, seed=SEED,
+                             policy=policy, keep_served=True)
+    torch.cuda.synchronize()
+    srv = rep.server
+    blocks = srv.state[1]
+    out = dict(run_s=time.perf_counter() - t0, warmup_s=rep.warmup_s,
+               launches=rowsplit_spmm.LAUNCHES - before,
+               ran=[list(r) for r in rep.ran], forwards=rep.forwards,
+               programs=rep.programs,
+               replans=rep.replans, recompiles=rep.recompiles,
+               eager=all(isinstance(srv.program(*sh), EagerProgram)
+                         for sh in srv.ladder.shapes()),
+               spmd=all(sl.plan.meta.spmd_mesh() is not None
+                        for blk in blocks for sl in blk["mlp"].values()),
+               methods=sorted({lm.method for blk in blocks
+                               for sl in blk["mlp"].values()
+                               for lm in sl.plan.meta.local_metas}))
+    load = rep.load
+    if load is not None:
+        out.update(rate_rps=rep.rate_rps, n=load.n, ok=load.ok,
+                   shed=load.shed, error=load.error, wall_s=load.wall_s,
+                   req_per_s=load.throughput_rps, p50_ms=load.p50_us / 1e3,
+                   p99_ms=load.p99_us / 1e3)
+        torch.save([dict(tokens=tokens, bucket=fut.bucket, row=fut.row,
+                         packed=fut.packed, rows=fut.result().cpu())
+                    for tokens, fut in load.served],
+                   os.path.join(out_dir, "online_rows.pt"))
+    return out
 
-def sharded_spmd(cfg, mlp, logits, dev, card) -> dict:
+
+
+def sharded_spmd(cfg, params, logits, dev, card) -> dict:
     """SPMD_RANKS processes on the one card over gloo (the library already
-    built: the ranks load it): ``spmd_child`` on layer 0's pruned FFN,
+    built: the ranks load it): ``spmd_child`` on layer 0's pruned FFN and
+    ``serve_online`` over the ranks (its rows held by ``mesh_online``),
     then ``torchrun -m repro_torch.launch.serve --prune-ffn 0.25 --mesh
     SPMD_RANKS`` at full width, its logits against ``logits`` (the
-    unsharded forward, same params and prompt).  Ranks sharing a card
-    measure correctness, not scaling."""
+    unsharded forward, same params and prompt), and ``... --serve --mesh
+    SPMD_RANKS``.  Ranks sharing a card measure correctness, not
+    scaling."""
+    mlp = params["blocks"][0]["mlp"]
     from repro_torch.kernels import _cuda
     out_dir = _cuda.BUILD_DIR / "sharded"
     shutil.rmtree(out_dir, ignore_errors=True)
@@ -4744,9 +4809,11 @@ def sharded_spmd(cfg, mlp, logits, dev, card) -> dict:
                                  f"{log[-4000:]}")
     ranks_s = time.perf_counter() - t0
     bad = []
+    ranks = []
     for r in range(SPMD_RANKS):
         with open(out_dir / f"rank{r}.json", encoding="utf-8") as f:
             res = json.load(f)
+        ranks.append(res)
         for c in res["cases"]:
             gaps = ", ".join(
                 f"{w} bits" if c[w]["bits"]
@@ -4761,6 +4828,8 @@ def sharded_spmd(cfg, mlp, logits, dev, card) -> dict:
                 bad.append((r, c["matrix"], c["dim"]))
     if bad:
         raise AssertionError(f"SPMD ranks disagree with the loop path: {bad}")
+    online = mesh_online(cfg, params, [res["online"] for res in ranks],
+                         out_dir, dev, card)
     path = out_dir / "logits.pt"
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [SRC] + [p for p in os.environ.get("PYTHONPATH", "").split(
@@ -4791,8 +4860,117 @@ def sharded_spmd(cfg, mlp, logits, dev, card) -> dict:
     same = torch.equal(got, logits)
     print(f"torchrun serve --mesh {SPMD_RANKS}: logits the unsharded bits: "
           f"{same}; ranks' check {ranks_s:.1f} s; {card}")
+    cli = mesh_online_cli(cfg, env)
     return dict(backend=res["backend"], ranks_s=ranks_s, serve_s=run_s,
-                serve_bits_equal=same)
+                serve_bits_equal=same, online=online, online_cli=cli)
+
+
+def mesh_online(cfg, params, ranks, out_dir, dev, card) -> dict:
+    """The ranks' ``serve_online`` in lockstep (``spmd_online``): every
+    rank ran the leader's buckets in its order (each counted where its
+    program call returned), built nothing after warmup, ran eager buckets
+    on the SPMD path and launched row-split 48 times a forward (a warm
+    call a build, a forward a program call); every served
+    request's rows against the unsharded eager forward (same params,
+    plans built here) of the bucket matrix it was packed in, within the
+    serving bars."""
+    from repro_torch.launch import serve
+    lead = ranks[0]
+    for r, o in enumerate(ranks):
+        forwards = o["programs"] + o["forwards"]
+        print(f"mesh online rank {r}/{SPMD_RANKS}: {o['programs']} bucket "
+              f"programs, eager {o['eager']}, SPMD path {o['spmd']}, shard "
+              f"methods {o['methods']}; {forwards} forwards ("
+              f"{o['programs']} warm calls at build, {o['forwards']} "
+              f"program calls); row-split launches {o['launches']} ("
+              f"{o['launches'] / max(forwards, 1):.0f} a forward); recompiles after warmup {o['recompiles']}, plans "
+              f"built while serving {o['replans']}; warmup {o['warmup_s']:.3f} "
+              f"s, run {o['run_s']:.2f} s; eager buckets over gloo, "
+              f"{SPMD_RANKS} ranks on one card; {card}")
+        if o["ran"] != lead["ran"] or o["forwards"] != lead["forwards"] or \
+                len(o["ran"]) != o["forwards"] or o["recompiles"] or \
+                o["replans"] or not (o["eager"] and o["spmd"]) or \
+                o["launches"] != 48 * forwards or o["programs"] != 9:
+            raise AssertionError(f"mesh online rank {r}: {o}")
+    if (lead["ok"], lead["shed"], lead["error"]) != (
+            MESH_ONLINE_REQUESTS, 0, 0):
+        raise AssertionError(f"mesh online: {lead}")
+    served = torch.load(out_dir / "online_rows.pt", weights_only=False)
+    blocks = serve.prune_ffn_blocks(params, cfg, KEEP)
+    base = serve.make_pruned_forward(cfg)
+    want, gap, rel_gap, bits = {}, 0.0, 0.0, 0
+    with torch.inference_mode():
+        for q in served:
+            n = len(q["tokens"])
+            key = q["packed"].tobytes()
+            if key not in want:
+                want[key] = base(params, blocks,
+                                 torch.from_numpy(q["packed"]).to(dev))
+            if tuple(q["bucket"]) != q["packed"].shape or \
+                    not (q["packed"][q["row"], :n] == q["tokens"]).all():
+                raise AssertionError("mesh online: a request's packed row "
+                                     "is not its tokens")
+            ref = want[key][q["row"], :n]
+            got = q["rows"].to(dev)
+            d, rel = logits_gap(got, ref)
+            if not (d <= SERVE_TOL["max_abs"] and
+                    rel <= SERVE_TOL["rel_fro"]):
+                serve_gap(f"mesh online request (length {n}) at bucket "
+                          f"{tuple(q['bucket'])} vs unsharded", got, ref)
+            gap, rel_gap = max(gap, d), max(rel_gap, rel)
+            bits += bool(torch.equal(got, ref))
+    del blocks, want
+    torch.cuda.empty_cache()
+    print(f"mesh online: offered {lead['rate_rps']:.2f} req/s (auto rate), "
+          f"{lead['ok']}/{lead['n']} ok, {lead['shed']} shed, "
+          f"{lead['error']} error in {lead['wall_s']:.3f} s = "
+          f"{lead['req_per_s']:.3f} req/s served, p50 {lead['p50_ms']:.3f} "
+          f"ms, p99 {lead['p99_ms']:.3f} ms (of {lead['n']} latencies: "
+          f"near the largest, one stall sets it), warmup "
+          f"{lead['warmup_s']:.3f} s; "
+          f"every served request's rows vs the unsharded eager forward of "
+          f"its bucket matrix: max |d| {gap:.4e}, worst relative "
+          f"Frobenius {rel_gap:.4e} (tol max_abs {SERVE_TOL['max_abs']}, "
+          f"rel_fro {SERVE_TOL['rel_fro']}), "
+          f"{bits}/{len(served)} bit-equal; eager buckets over gloo, "
+          f"{SPMD_RANKS} ranks on one card; {card}")
+    return dict({k: lead[k] for k in (
+        "warmup_s", "rate_rps", "ok", "shed", "error", "req_per_s",
+        "p50_ms", "p99_ms")}, rank_launches=[o["launches"] for o in ranks],
+        max_abs=gap, rel_fro=rel_gap, bit_equal=bits, served=len(served))
+
+
+def mesh_online_cli(cfg, env) -> dict:
+    """``torchrun --nproc-per-node SPMD_RANKS -m repro_torch.launch.serve
+    --prune-ffn KEEP --serve --mesh SPMD_RANKS``: exit 0, and rank 0's
+    lines show every request served and nothing built after warmup."""
+    argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc-per-node", str(SPMD_RANKS), "-m",
+            "repro_torch.launch.serve", "--arch", cfg.name, "--prune-ffn",
+            str(KEEP), "--serve", "--mesh", str(SPMD_RANKS), "--device",
+            "cuda"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, capture_output=True, text=True, env=env,
+                          timeout=TORCHRUN_S, check=False)
+    run_s = time.perf_counter() - t0
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith("[serve]")]
+    print(f"$ torchrun --nproc-per-node {SPMD_RANKS} -m "
+          f"repro_torch.launch.serve --arch {cfg.name} --prune-ffn {KEEP} "
+          f"--serve --mesh {SPMD_RANKS} --device cuda  (exit "
+          f"{proc.returncode}, {run_s:.1f} s)")
+    for ln in lines:
+        print(f"  {ln}")
+    text = "\n".join(lines)
+    want = (f"{MESH_ONLINE_REQUESTS}/{MESH_ONLINE_REQUESTS} ok (0 shed, "
+            "0 error)", "recompiles after warmup: 0",
+            "plans built during serving: 0",
+            f"eager; lockstep over {SPMD_RANKS} ranks, gloo collectives")
+    if proc.returncode or not all(w in text for w in want):
+        raise AssertionError(f"torchrun serve --serve --mesh exited "
+                             f"{proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    return dict(run_s=run_s, lines=lines)
 
 
 def sharded_moe(dev, card, read_counts) -> dict:
@@ -4864,7 +5042,7 @@ def sharded(dev, card, reset_counts, read_counts) -> dict:
     clear_cache()
     grads = sharded_grads(cfg, mlp, dev, card, reset_counts, read_counts)
     launches.update(grads.pop("launches"))
-    spmd = sharded_spmd(cfg, mlp, llama.pop("logits"), dev, card)
+    spmd = sharded_spmd(cfg, params, llama.pop("logits"), dev, card)
     del params, mlp
     clear_cache()
     torch.cuda.empty_cache()
@@ -5896,7 +6074,8 @@ def main() -> int:
           f"and cols in {SHARD_N} shards, the per-shard loop), its "
           f"{TRAIN_STEPS} training steps of each dim in {GRAD_SHARDS} "
           f"shards and its moe_groups={MOE_GROUPS} layer (the SPMD ranks' "
-          "launches are printed, not counted); the model_parallel phase's "
+          "launches, their lockstep serve_online run's included, are "
+          "printed, not counted); the model_parallel phase's "
           f"pruned Llama prefill of 1 x {LONG_PREFILL} tokens and its "
           f"{LONG_GEN} decode steps (long_prefill: layer 0's w1 at n = "
           f"{LONG_PREFILL} f32 by each SpMM kernel, its ms, the 2*nnz*n "

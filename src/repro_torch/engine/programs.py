@@ -22,6 +22,11 @@ the state it serves, and nothing falls back:
   counterpart of the reference's AOT-compiled program: one host launch
   for the whole forward).  A capture that fails raises; there is no eager
   retry;
+* on a CUDA state whose forward runs a collective -- a sharded plan that
+  takes the SPMD path, one shard a rank (``ShardedMeta.spmd_mesh()``) --
+  an :class:`EagerProgram` with one warm call at build.  Gloo stages a
+  collective on CUDA tensors through the host, which no capture can hold;
+  under NCCL, a card a rank, a capture could, but that is not built;
 * on a CPU state, an :class:`EagerProgram` -- the forward called eagerly
   under ``torch.inference_mode()``.
 """
@@ -143,12 +148,21 @@ def state_device(state) -> torch.device:
 
 
 class EagerProgram:
-    """A bucket's program on a CPU state: ``forward(state, tokens)`` called
-    eagerly under ``torch.inference_mode()``; each call returns a fresh
-    output."""
+    """A bucket's program called eagerly: ``forward(state, tokens)`` under
+    ``torch.inference_mode()``; each call returns a fresh output.
 
-    def __init__(self, forward: Callable, state):
+    ``warm=(batch, length)`` makes one synchronised call at build on a
+    zero token matrix of that shape: a card's first-call cost moved into
+    warmup."""
+
+    def __init__(self, forward: Callable, state,
+                 warm: tuple[int, int] | None = None):
         self.forward, self.state = forward, state
+        if warm is not None:
+            device = state_device(state)
+            self(torch.zeros(warm, dtype=torch.int64, device=device))
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
 
     def __call__(self, tokens: torch.Tensor):
         with torch.inference_mode():
@@ -203,14 +217,41 @@ class GraphProgram:
         return self.out
 
 
+def runs_collectives(state) -> bool:
+    """Whether a forward over ``state`` runs a collective: some plan in
+    the tree (a ``SparseLinear``'s) is sharded and takes the SPMD path,
+    its ``meta.spmd_mesh()`` set."""
+    stack = [state]
+    while stack:
+        x = stack.pop()
+        if isinstance(x, torch.Tensor):
+            continue
+        spmd = getattr(x, "spmd_mesh", None)
+        if callable(spmd):
+            if spmd() is not None:
+                return True
+        elif isinstance(x, dict):
+            stack.extend(x.values())
+        elif isinstance(x, (list, tuple)):
+            stack.extend(x)
+        elif dataclasses.is_dataclass(x) and not isinstance(x, type):
+            stack.extend(getattr(x, f.name) for f in dataclasses.fields(x))
+    return False
+
+
 def bucket_program(forward: Callable, state, batch: int, length: int):
     """The program of one ``(batch, length)`` bucket, by the state's
-    device: a :class:`GraphProgram` on a CUDA state, an
+    device and plans: an :class:`EagerProgram` where the forward runs a
+    collective (:func:`runs_collectives`; on a CUDA state with its warm
+    call), else a :class:`GraphProgram` on a CUDA state and an
     :class:`EagerProgram` on a CPU one."""
     device = state_device(state)
-    if device.type == "cuda":
-        return GraphProgram(forward, state, batch, length, device)
-    if device.type != "cpu":
+    if device.type not in ("cuda", "cpu"):
         raise ValueError(f"bucket programs run on cuda or cpu, not "
                          f"{device}")
+    if runs_collectives(state):
+        return EagerProgram(forward, state, warm=(
+            (batch, length) if device.type == "cuda" else None))
+    if device.type == "cuda":
+        return GraphProgram(forward, state, batch, length, device)
     return EagerProgram(forward, state)

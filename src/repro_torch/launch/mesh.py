@@ -150,6 +150,18 @@ def gloo_cuda_all_gather() -> None:
     _GLOO_CUDA_LIB.append(lib)
 
 
+def control_group():
+    """A new gloo group of every rank, for messages on CPU tensors beside
+    whatever backend the default group has (a lockstep server's control
+    channel, ``serving.Lockstep``).  Every rank calls it at the same point;
+    it raises without a process group."""
+    if not dist.is_initialized():
+        raise RuntimeError("control_group: no process group is up (run "
+                           "under torchrun, or init_process_group first)")
+    return dist.new_group(backend="gloo",
+                          timeout=datetime.timedelta(seconds=TIMEOUT_S))
+
+
 def rank() -> int:
     """This process's rank (0 without a process group)."""
     return dist.get_rank() if dist.is_initialized() else 0

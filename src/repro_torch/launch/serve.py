@@ -16,6 +16,8 @@ requests over shape-bucket programs.
     python -m repro_torch.launch.serve --smoke --prune-ffn 0.25 --device cpu
     torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
         --prune-ffn 0.25 --mesh 2
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+        --prune-ffn 0.25 --serve --mesh 2
 
 Without ``--prune-ffn``, ``generate`` prefills the prompt into caches (KV
 for attention, the recurrent state of SSD and RG-LRU blocks) and decodes
@@ -36,8 +38,13 @@ run's Chrome trace there; ``--metrics-out PATH`` dumps the metrics
 registry (``python -m repro_torch.obs.validate`` checks both).
 ``--mesh N`` shards every pruned-FFN weight by rows over an N-rank
 ``data`` mesh (``torchrun --nproc-per-node N``; one rank a shard, ranks
-sharing a card talk over gloo); only rank 0 prints.  Online serving over a
-mesh (``--serve --mesh``) comes with the next slice of the port.
+sharing a card talk over gloo); only rank 0 prints.  With ``--serve``
+every rank runs the server in lockstep (``serving.Lockstep``): rank 0
+admits, batches and broadcasts each bucket batch, every rank runs it, and
+their forwards all-reduce the sharded SpMMs' rows; the buckets are eager
+programs there (no capture holds a gloo collective), retries are off,
+and a failed bucket ends every rank's run non-zero.  ``--mesh 1`` in one
+process runs the per-shard loop, with CUDA graphs on the card.
 """
 from __future__ import annotations
 
@@ -231,7 +238,10 @@ def serve_pruned(cfg, params, prompt, keep: float, *, microbatch: int = 0,
 
 @dataclasses.dataclass
 class OnlineReport:
-    """What one ``serve_online`` run measured (host clock)."""
+    """What one ``serve_online`` run measured (host clock).  ``forwards``
+    and ``ran`` are the server's (``serving.Server``): the program calls
+    that returned on this rank and their buckets in order.  On a follower
+    of a mesh ``load`` is None and ``rate_rps`` 0."""
 
     load: object                  # serving.loadgen.LoadReport
     server: object                # the stopped serving.Server
@@ -239,6 +249,9 @@ class OnlineReport:
     rate_rps: float
     replans: int
     recompiles: int
+    programs: int = 0
+    forwards: int = 0
+    ran: list = dataclasses.field(default_factory=list)
 
 
 def serve_online(cfg, params, keep: float, *, batch: int, prompt_len: int,
@@ -255,8 +268,15 @@ def serve_online(cfg, params, keep: float, *, batch: int, prompt_len: int,
     must neither replan nor build a program: both raise.
     ``keep_served`` keeps the served requests' tokens and futures in
     ``load.served``.
+
+    Under a process group of several ranks with a ``policy`` sharded over
+    a mesh, every rank calls this with the same params and policy: rank 0
+    serves the load and the others follow it in lockstep
+    (``serving.Lockstep``, over a gloo group of its own), each rank
+    checking its own replans and recompiles.
     """
     from repro_torch import serving
+    from repro_torch.engine import GraphProgram
     from repro_torch.serving import loadgen
 
     check_prunable(cfg)
@@ -270,44 +290,73 @@ def serve_online(cfg, params, keep: float, *, batch: int, prompt_len: int,
 
     ladder = serving.BucketLadder.from_max(
         prompt_len, max(batch, 1), min_len=min(8, prompt_len))
-    server = serving.Server(
-        forward, (params, blocks), ladder, queue_depth=queue_depth,
-        default_deadline_s=deadline_ms / 1e3 if deadline_ms else None,
-        name="serve.online")
-    t0 = time.perf_counter()
-    server.warmup()
-    warm_s = time.perf_counter() - t0
-    print(f"[serve] built {len(ladder.shapes())} bucket programs "
-          f"(lengths={ladder.lengths} batches={ladder.batches}; "
-          f"{'CUDA graphs' if server.device.type == 'cuda' else 'eager'}) "
-          f"in {warm_s:.2f}s")
-    plan_stats = cache_stats()
-    if rate <= 0:
-        solo = min(server.probe(ladder.batches[0], ladder.max_len)
-                   for _ in range(3))
-        rate = 4.0 / solo
-        print(f"[serve] auto rate: solo call {solo * 1e3:.2f}ms -> offered "
-              f"{rate:.1f} req/s")
-    sched = loadgen.poisson_schedule(
-        requests, rate, (max(1, prompt_len // 4), prompt_len), seed=seed)
-    server.start()
+    shards = policy.shards if policy is not None else None
+    group = (launch_mesh.control_group() if shards is not None
+             and shards.mesh is not None and launch_mesh.world_size() > 1
+             else None)
+    lockstep = serving.Lockstep(group, ladder) if group is not None else None
     try:
-        load = loadgen.run_load(server, sched, vocab=cfg.vocab_size,
-                                seed=seed, keep=keep_served)
+        server = serving.Server(
+            forward, (params, blocks), ladder, queue_depth=queue_depth,
+            default_deadline_s=deadline_ms / 1e3 if deadline_ms else None,
+            name="serve.online", lockstep=lockstep)
+        t0 = time.perf_counter()
+        server.warmup()
+        warm_s = time.perf_counter() - t0
+        graphs = isinstance(server.program(*ladder.shapes()[0]),
+                            GraphProgram)
+        kind = "CUDA graphs" if graphs else "eager"
+        if lockstep is not None:
+            kind += (f"; lockstep over {lockstep.world} ranks, "
+                     f"{torch.distributed.get_backend()} collectives")
+        print(f"[serve] built {len(ladder.shapes())} bucket programs "
+              f"(lengths={ladder.lengths} batches={ladder.batches}; "
+              f"{kind}) in {warm_s:.2f}s")
+        plan_stats = cache_stats()
+        load = None
+        if lockstep is not None and not lockstep.leads:
+            rate = 0.0
+            server.follow()
+        else:
+            if rate <= 0:
+                solo = min(server.probe(ladder.batches[0], ladder.max_len)
+                           for _ in range(3))
+                rate = 4.0 / solo
+                print(f"[serve] auto rate: solo call {solo * 1e3:.2f}ms -> "
+                      f"offered {rate:.1f} req/s")
+            sched = loadgen.poisson_schedule(
+                requests, rate, (max(1, prompt_len // 4), prompt_len),
+                seed=seed)
+            server.start()
+            try:
+                load = loadgen.run_load(server, sched, vocab=cfg.vocab_size,
+                                        seed=seed, keep=keep_served)
+            finally:
+                server.stop()
+        replans = _check_replans(plan_stats, cache_stats())
+        rc = server.recompiles()
+        if rc:
+            raise RuntimeError(
+                f"online serving built {rc} program(s) after warmup -- the "
+                "bucket ladder must cover every served shape")
     finally:
-        server.stop()
-    replans = _check_replans(plan_stats, cache_stats())
-    rc = server.recompiles()
-    if rc:
-        raise RuntimeError(
-            f"online serving built {rc} program(s) after warmup -- the "
-            "bucket ladder must cover every served shape")
-    print(f"[serve] online: {load.ok}/{load.n} ok ({load.shed} shed, "
-          f"{load.error} error) in {load.wall_s:.2f}s = "
-          f"{load.throughput_rps:.1f} req/s; p50 {load.p50_us / 1e3:.2f}ms "
-          f"p99 {load.p99_us / 1e3:.2f}ms; recompiles after warmup: {rc}; "
-          f"plans built during serving: {replans}")
-    return OnlineReport(load, server, warm_s, rate, replans, rc)
+        if group is not None:
+            torch.distributed.destroy_process_group(group)
+    if load is None:
+        print(f"[serve] rank {lockstep.rank} followed: "
+              f"{server.forwards} bucket runs; "
+              f"recompiles after warmup: {rc}; plans built during "
+              f"serving: {replans}")
+    else:
+        print(f"[serve] online: {load.ok}/{load.n} ok ({load.shed} shed, "
+              f"{load.error} error) in {load.wall_s:.2f}s = "
+              f"{load.throughput_rps:.1f} req/s; p50 "
+              f"{load.p50_us / 1e3:.2f}ms p99 {load.p99_us / 1e3:.2f}ms; "
+              f"recompiles after warmup: {rc}; plans built during "
+              f"serving: {replans}")
+    return OnlineReport(load, server, warm_s, rate, replans, rc,
+                        programs=len(server.programs),
+                        forwards=server.forwards, ran=list(server.ran))
 
 
 def main(argv=None):
@@ -371,7 +420,9 @@ def main(argv=None):
                     "mesh: nnz-balanced row shards, one local plan a "
                     "shard, each rank running its own shard (run under "
                     "torchrun --nproc-per-node N; N = 1 in one process "
-                    "runs the per-shard loop)")
+                    "runs the per-shard loop); with --serve every rank "
+                    "runs the server in lockstep, rank 0 admitting and "
+                    "broadcasting each bucket batch")
     ap.add_argument("--logits-out", default="", metavar="PATH",
                     help="save the pruned-FFN logits here (torch.save, on "
                     "the CPU; rank 0)")
@@ -391,10 +442,6 @@ def main(argv=None):
             ap.error(f"{', '.join(dead)}: no effect without --prune-ffn "
                      "KEEP (the dense decode path ignores these flags); add "
                      "--prune-ffn or drop them")
-    if args.mesh and args.serve:
-        ap.error("--serve with --mesh: online serving over a mesh (every "
-                 "rank's server loop in lockstep) comes with the next slice "
-                 "of the port; drop one of them")
     if args.mesh < 0:
         ap.error(f"--mesh {args.mesh}: a rank count is positive")
     device = torch.device(args.device)

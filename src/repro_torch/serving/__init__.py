@@ -9,11 +9,13 @@
 
 ``buckets`` holds the pure ladder/packer core, ``server`` the queue,
 batcher, admission control and program warmup (one CUDA graph a bucket on
-the card), ``loadgen`` the deterministic Poisson load generator.
+the card) and the lockstep mode of a server on every rank of a mesh
+(``Lockstep``), ``loadgen`` the deterministic Poisson load generator.
 """
 from . import loadgen
 from .buckets import BucketLadder, PackedBatch, pack
-from .server import RequestFuture, RequestShed, Server, ServerClosed
+from .server import (Lockstep, RequestFuture, RequestShed, Server,
+                     ServerClosed)
 
-__all__ = ["BucketLadder", "PackedBatch", "RequestFuture", "RequestShed",
-           "Server", "ServerClosed", "loadgen", "pack"]
+__all__ = ["BucketLadder", "Lockstep", "PackedBatch", "RequestFuture",
+           "RequestShed", "Server", "ServerClosed", "loadgen", "pack"]

@@ -30,9 +30,32 @@ thread runs programs.  A CUDA graph's output is static -- the next replay
 of the bucket overwrites it -- so the batcher copies each request's rows
 out, on its own current stream, before it replays again, and resolves the
 futures after synchronising that stream.
+
+Lockstep over a mesh (``lockstep=`` a :class:`Lockstep`): where the
+forward runs a collective -- sharded plans on the SPMD path, each rank
+running its shard and the ranks all-reducing C inside the forward -- every
+rank must run every bucket program in the same order on the same tokens.
+Rank 0 leads: it alone takes requests, sheds (queue full, deadline),
+batches, and slices rows into futures, as above.  Every program it builds
+or calls goes through one choke point that first broadcasts a message of
+what to build or run; the other ranks follow (:meth:`Server.warmup`, then
+:meth:`Server.follow`): they build the same programs, run them on the
+broadcast tokens and drop the outputs.  One thread sends at a time:
+warmup and probes before :meth:`Server.start`, the batcher while it runs
+(a heartbeat on every idle poll, so a follower's wait is bounded by the
+group's timeout only while the leader is gone), and :meth:`Server.stop`
+after joining it.  Limits of the port: retries are off (one attempt: a
+retry on one rank would desynchronise the ranks), and an execution error
+fails, on the leader, that batch's futures, the rest of its batch window
+unrun and every queued request, and makes :meth:`Server.stop` raise
+without releasing the followers -- every rank's run then ends non-zero,
+through the launcher's teardown or the group's timeout
+(``launch.mesh.TIMEOUT_S``), never by serving on.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import itertools
 import queue as _queue
@@ -43,6 +66,7 @@ from concurrent.futures import Future
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.distributed import fault
 from repro_torch.engine.programs import (ProgramCache, bucket_program,
@@ -104,6 +128,52 @@ def _sync(device: torch.device) -> None:
         torch.cuda.current_stream(device).synchronize()
 
 
+class Lockstep:
+    """The control channel of a server that runs on every rank of a mesh
+    (see the module docstring): rank 0 of ``group`` leads, the others
+    follow.
+
+    A message is one int64 CPU tensor of a fixed size, broadcast from the
+    leader over ``group`` -- a gloo group of its own
+    (``launch.mesh.control_group``; an NCCL group takes no CPU tensor):
+    ``[op, batch, length, tokens...]``, the ``(batch, length)`` token
+    matrix row-major in the first of the ladder's ``max_batch * max_len``
+    slots.  A message that fails raises."""
+
+    BUILD, RUN, WARM, IDLE, STOP = "build", "run", "warm", "idle", "stop"
+    _OPS = (BUILD, RUN, WARM, IDLE, STOP)
+
+    def __init__(self, group, ladder: BucketLadder):
+        self.group = group
+        self.rank = dist.get_rank(group)
+        self.world = dist.get_world_size(group)
+        self._src = dist.get_global_rank(group, 0)
+        self._size = 3 + ladder.max_batch * ladder.max_len
+
+    @property
+    def leads(self) -> bool:
+        return self.rank == 0
+
+    def send(self, op: str, batch: int = 0, length: int = 0,
+             tokens: torch.Tensor | None = None) -> None:
+        """The leader's message (``tokens``: a ``(batch, length)`` CPU
+        tensor for :attr:`RUN`)."""
+        msg = torch.zeros(self._size, dtype=torch.int64)
+        msg[0], msg[1], msg[2] = self._OPS.index(op), batch, length
+        if tokens is not None:
+            msg[3:3 + batch * length] = tokens.reshape(-1)
+        dist.broadcast(msg, src=self._src, group=self.group)
+
+    def recv(self) -> tuple[str, int, int, torch.Tensor]:
+        """A follower's next message: op, batch, length and the token
+        matrix."""
+        msg = torch.empty(self._size, dtype=torch.int64)
+        dist.broadcast(msg, src=self._src, group=self.group)
+        op, batch, length = self._OPS[int(msg[0])], int(msg[1]), int(msg[2])
+        return op, batch, length, msg[3:3 + batch * length].reshape(
+            batch, length)
+
+
 class Server:
     """Async request queue + continuous batcher over bucket programs.
 
@@ -113,9 +183,16 @@ class Server:
     ``(batch, length, ...)``, and each row must depend only on its own
     tokens (true for causal models and for row-independent SpMM scoring).
     ``state`` is the parameter tree; its device picks the programs (CUDA
-    graphs on a card, eager calls on the CPU).  ``warmup`` re-attaches the
+    graphs on a card, eager calls on the CPU or where the forward runs a
+    collective).  ``warmup`` re-attaches the
     engine-cached SpMM plans to every sparse leaf before it builds the
     programs, so plans are built once, outside every program.
+    ``lockstep`` runs the server on every rank of a mesh (see the module
+    docstring): on rank 0 as below, on the others :meth:`warmup`, then
+    :meth:`follow`.  ``forwards`` counts the program calls that returned
+    on this rank -- probes and batches, on a follower the leader's RUN
+    messages; not the warm calls at build -- and ``ran`` keeps the
+    ``(batch, length)`` buckets of the last ``RAN_KEPT`` of them, in order.
 
     ``submit`` is thread-safe and does not block: it returns a
     :class:`RequestFuture` (a ``concurrent.futures.Future``) that resolves
@@ -123,13 +200,15 @@ class Server:
     device, or raises :class:`RequestShed` or the execution error.
     """
 
+    RAN_KEPT = 4096
+
     def __init__(self, forward: Callable, state, ladder: BucketLadder, *,
                  queue_depth: int = 256, batch_window_s: float = 0.002,
                  default_deadline_s: float | None = None,
                  retry_attempts: int = 3, retry_backoff_s: float = 0.05,
                  transient: tuple = (OSError,), pad_id: int = 0,
                  trim: bool = True, poll_s: float = 0.05,
-                 name: str | None = None):
+                 name: str | None = None, lockstep: Lockstep | None = None):
         self.ladder = ladder
         self.state = state
         self.device = state_device(state)
@@ -151,30 +230,61 @@ class Server:
         self._closed = False
         self._thread: threading.Thread | None = None
         self._warm_misses: int | None = None
+        self.forwards = 0
+        self.ran: collections.deque = collections.deque(maxlen=self.RAN_KEPT)
+        self.lockstep = lockstep
+        self._failure: BaseException | None = None
+        self._released = False
+        if lockstep is not None:
+            self.retry_attempts = 1
+            if len(ladder.shapes()) > self.programs.maxsize:
+                # An evicted bucket rebuilt on one rank alone would run its
+                # warm call's collectives unpaired.
+                raise ValueError(
+                    f"a lockstep server keeps every bucket: the ladder's "
+                    f"{len(ladder.shapes())} shapes exceed the program "
+                    f"cache's {self.programs.maxsize}")
+
+    def _leader(self, what: str) -> None:
+        if self.lockstep is not None and not self.lockstep.leads:
+            raise RuntimeError(
+                f"server {self.name}: {what} on rank "
+                f"{self.lockstep.rank}, which follows rank 0 (call "
+                "warmup() and follow())")
 
     # ------------------------------------------------------------ warmup ---
 
     def program(self, batch: int, length: int):
         """The program of the ``(batch, length)`` bucket, built on a miss.
         Call it with a token tensor of that shape; before :meth:`start`
-        only (afterwards the batcher thread alone runs programs)."""
-        return self.programs.get(
-            (batch, length),
-            lambda: bucket_program(self._forward, self.state, batch,
-                                   length))
+        only (afterwards the batcher thread alone runs programs).  A
+        lockstep leader's build first tells the followers to build it."""
+        def build():
+            if self.lockstep is not None and self.lockstep.leads:
+                self.lockstep.send(Lockstep.BUILD, batch, length)
+            return bucket_program(self._forward, self.state, batch, length)
+
+        return self.programs.get((batch, length), build)
 
     def warmup(self) -> "Server":
         """Build every SpMM plan and every bucket's program.
 
         Idempotent; records the post-warmup miss count so
-        :meth:`recompiles` can assert the steady state built nothing.
+        :meth:`recompiles` can assert the steady state built nothing.  A
+        lockstep follower builds what the leader's warmup builds, in its
+        order, until the leader's warmup ends.
         """
         shapes = self.ladder.shapes()
         with _trace.span("serve.warmup", cat="serve", buckets=len(shapes)):
             self.state = ensure_spmm_plans(self.state)
+            if self.lockstep is not None and not self.lockstep.leads:
+                self._follow(until=Lockstep.WARM)
+                return self
             for b, s in shapes:
                 self.program(b, s)
         self._warm_misses = self.programs.stats().misses
+        if self.lockstep is not None:
+            self.lockstep.send(Lockstep.WARM)
         return self
 
     def recompiles(self) -> int:
@@ -187,6 +297,7 @@ class Server:
         """One warm call at a bucket shape, synchronised; returns host
         seconds (rate calibration for load generators).  Before
         :meth:`start` only."""
+        self._leader("probe")
         prog = self.program(batch, length)
         tok = torch.full((batch, length), self.pad_id, dtype=torch.int64,
                          device=self.device)
@@ -205,6 +316,7 @@ class Server:
         queue is at depth; ``deadline_s`` (default: the server's
         ``default_deadline_s``) sheds at dequeue when already expired.
         """
+        self._leader("submit")
         if self._closed:
             raise ServerClosed(f"server {self.name} is stopped")
         tokens = np.asarray(tokens)
@@ -237,6 +349,7 @@ class Server:
 
     def start(self) -> "Server":
         """Warm up (if not yet) and launch the batcher thread."""
+        self._leader("start")
         if self._thread is not None:
             raise RuntimeError(f"server {self.name} already started")
         if self._warm_misses is None:
@@ -250,7 +363,8 @@ class Server:
     def stop(self, timeout: float | None = None) -> None:
         """Stop accepting requests, drain the queue, join the batcher;
         raises ``TimeoutError`` if it has not ended within ``timeout``
-        seconds."""
+        seconds.  A lockstep leader then releases the followers; after an
+        execution error it raises instead (see the module docstring)."""
         self._closed = True
         self._stop.set()
         if self._thread is not None:
@@ -259,14 +373,76 @@ class Server:
                 raise TimeoutError(f"server {self.name}: the batcher did "
                                    f"not end within {timeout} s")
             self._thread = None
+        if self.lockstep is None or not self.lockstep.leads:
+            return
+        if self._failure is not None:
+            self._fail_queued(self._failure)
+            raise RuntimeError(
+                f"server {self.name}: a bucket failed under lockstep; the "
+                "followers are not released") from self._failure
+        if not self._released:
+            self.lockstep.send(Lockstep.STOP)
+            self._released = True
+
+    def follow(self) -> "Server":
+        """A lockstep follower's serving loop: build and run what the
+        leader's messages say, in their order, until its :meth:`stop`."""
+        if self.lockstep is None or self.lockstep.leads:
+            raise RuntimeError(f"server {self.name}: follow() is for the "
+                               "ranks that follow a lockstep leader")
+        if self._warm_misses is None and not self._released:
+            self.warmup()
+        if not self._released:
+            self._follow(until=Lockstep.STOP)
+        return self
+
+    def _follow(self, until: str) -> None:
+        ls = self.lockstep
+        while True:
+            op, batch, length, tokens = ls.recv()
+            if op == Lockstep.BUILD:
+                self.program(batch, length)
+            elif op == Lockstep.RUN:
+                self._ran(self.program(batch, length),
+                          tokens.to(self.device))
+                _sync(self.device)
+            elif op == Lockstep.WARM:
+                self._warm_misses = self.programs.stats().misses
+            elif op == Lockstep.STOP:
+                self._released = True
+                return
+            if op == until:
+                return
+
+    def _fail_queued(self, exc: BaseException) -> None:
+        while True:
+            try:
+                self._fail([self._q.get_nowait()], exc)
+            except _queue.Empty:
+                return
+
+    @staticmethod
+    def _fail(ps: list[_Pending], exc: BaseException) -> None:
+        t_fail = time.perf_counter()
+        for p in ps:
+            _requests_total.labels(outcome="error").inc()
+            p.future.done_s = t_fail
+            p.future.set_exception(exc)
 
     def _loop(self) -> None:
+        with (torch.cuda.device(self.device) if self.device.type == "cuda"
+              else contextlib.nullcontext()):
+            self._batches()
+
+    def _batches(self) -> None:
         while True:
             try:
                 first = self._q.get(timeout=self._poll_s)
             except _queue.Empty:
                 if self._stop.is_set():
                     return
+                if self.lockstep is not None:
+                    self.lockstep.send(Lockstep.IDLE)
                 continue
             first.t_dequeue = time.perf_counter()
             batch = [first]
@@ -285,6 +461,10 @@ class Server:
                 p.t_dequeue = time.perf_counter()
                 batch.append(p)
             self._serve_batch(batch)
+            if self._failure is not None:
+                self._closed = True
+                self._fail_queued(self._failure)
+                return
 
     def _serve_batch(self, batch: list[_Pending]) -> None:
         now = time.perf_counter()
@@ -295,8 +475,14 @@ class Server:
             else:
                 live.append(p)
         for pb in pack([p.length for p in live], self.ladder):
-            self._execute(pb.batch, pb.length,
-                          [live[i] for i in pb.indices])
+            ps = [live[i] for i in pb.indices]
+            if self._failure is not None:
+                # A bucket of this window failed under lockstep: the
+                # followers may still wait in its collectives, so the rest
+                # of the window fails unrun.
+                self._fail(ps, self._failure)
+            else:
+                self._execute(pb.batch, pb.length, ps)
 
     def _execute(self, bb: int, lb: int, ps: list[_Pending]) -> None:
         t_asm0 = time.perf_counter()
@@ -322,11 +508,9 @@ class Server:
         except Exception as e:
             # Futures must never hang: the whole bucket batch fails
             # together once retries are exhausted.
-            t_fail = time.perf_counter()
-            for p in ps:
-                _requests_total.labels(outcome="error").inc()
-                p.future.done_s = t_fail
-                p.future.set_exception(e)
+            self._fail(ps, e)
+            if self.lockstep is not None:
+                self._failure = e
             return
         t_done = time.perf_counter()
         for p, row in zip(ps, rows):
@@ -351,9 +535,18 @@ class Server:
         return rows
 
     def _call_program(self, program, tokens: torch.Tensor):
-        """One program call (override point for fault injection in
-        tests)."""
-        return program(tokens)
+        """One program call: the choke point of every call, where a
+        lockstep leader first sends the followers the bucket and its
+        tokens (override point for fault injection in tests)."""
+        if self.lockstep is not None:
+            self.lockstep.send(Lockstep.RUN, *tokens.shape, tokens.cpu())
+        return self._ran(program, tokens)
+
+    def _ran(self, program, tokens: torch.Tensor):
+        out = program(tokens)
+        self.forwards += 1
+        self.ran.append(tuple(tokens.shape))
+        return out
 
     def _slice(self, out: torch.Tensor, i: int, length: int):
         x = out[i]

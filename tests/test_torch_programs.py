@@ -77,6 +77,70 @@ def test_cpu_state_gets_the_eager_program():
     assert prog(tok) is not out          # a fresh output every call
 
 
+class _StubMeta:
+    """A plan's meta as the program rule reads it: ``spmd_mesh()``."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+
+    def spmd_mesh(self):
+        return self.mesh
+
+
+def _stub_state(spmd: bool):
+    import dataclasses
+
+    @dataclasses.dataclass
+    class Plan:
+        meta: _StubMeta
+
+    _, state, _ = _scorer("cpu")
+    return dict(state, sharded=[{"w1": Plan(_StubMeta(
+        "mesh" if spmd else None))}])
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+@pytest.mark.parametrize("spmd", [False, True])
+def test_bucket_program_eager_exactly_when_a_plan_runs_spmd(
+        monkeypatch, device, spmd):
+    """The program rule, with the device faked and the programs recorded
+    (no card needed): a state holding a plan whose ``spmd_mesh()`` is set
+    gets an eager program on either device, with a warm call at the
+    bucket's shape on a CUDA state; otherwise a CUDA state gets its graph
+    and a CPU state a plain eager program."""
+    from repro_torch.engine import programs
+    fwd, _, _ = _scorer("cpu")
+    state = _stub_state(spmd)
+    assert programs.runs_collectives(state) is spmd
+    built = []
+    monkeypatch.setattr(programs, "state_device",
+                        lambda st: torch.device(device))
+    monkeypatch.setattr(programs, "GraphProgram",
+                        lambda *a: built.append(("graph", a[2:4])))
+    monkeypatch.setattr(programs, "EagerProgram",
+                        lambda f, st, warm=None: built.append(("eager",
+                                                               warm)))
+    programs.bucket_program(fwd, state, 2, 8)
+    cuda = device == "cuda"
+    want = ("eager", (2, 8) if cuda else None) if spmd else \
+        ("graph", (2, 8)) if cuda else ("eager", None)
+    assert built == [want]
+
+
+def test_eager_program_warm_call_runs_the_forward_once():
+    fwd, state, _ = _scorer("cpu")
+    shapes = []
+
+    def counted(st, tok):
+        shapes.append(tuple(tok.shape))
+        return fwd(st, tok)
+
+    EagerProgram(counted, state, warm=(2, 8))
+    assert shapes == [(2, 8)]
+    EagerProgram(counted, state)
+    assert shapes == [(2, 8)]
+
+
 def test_other_devices_are_refused():
     fwd, state, _ = _scorer("cpu")
     meta = {"embed": torch.empty(3, device="meta")}

@@ -116,19 +116,16 @@ def test_main_default_args_smoke_on_cpu():
     ["--smoke", "--device", "cpu", "--prune-ffn", "0.25", "--serve",
      "--mesh", "2"],
 ])
-def test_main_rejects_paths_not_ported(argv, capsys):
+def test_main_mesh_refuses_more_ranks_than_the_group(argv, capsys):
     """What ``--mesh`` refuses: without ``--prune-ffn`` it is a dead flag;
     ``--mesh 2`` in one CPU process exceeds its one rank (naming
-    torchrun); ``--serve --mesh`` waits for the next slice."""
+    torchrun), with or without ``--serve``."""
     with pytest.raises(SystemExit) as e:
         serve.main(argv)
     if "--prune-ffn" not in argv:
         assert e.value.code == 2
         assert "--mesh: no effect without --prune-ffn" in \
             capsys.readouterr().err
-    elif "--serve" in argv:
-        assert e.value.code == 2
-        assert "next slice" in capsys.readouterr().err
     else:
         assert "--mesh 2 exceeds the 1 local device(s)" in str(e.value)
         assert "torchrun --nproc-per-node 2" in str(e.value)
@@ -166,6 +163,33 @@ def test_main_serve_on_cpu(capsys, tmp_path):
     served = {tuple(v["labels"].items()): v["value"]
               for v in metrics["serve_requests_total"]["values"]}
     assert served[(("outcome", "ok"),)] >= 12
+
+
+def test_main_serve_mesh_one_rank_runs_the_shard_loop(capsys):
+    """``--serve --mesh 1`` in one process: every request served through
+    one-shard plans (the per-shard loop, no process group, no lockstep),
+    nothing built after warmup; every forward dispatches each of its
+    pruned matrices down the loop path."""
+    from repro_torch import obs
+    _, tcfg = _configs("bfloat16")
+    with obs.tracing() as tr:
+        assert serve.main(["--smoke", "--prune-ffn", "0.25", "--serve",
+                           "--mesh", "1", "--device", "cpu", "--batch",
+                           "2", "--prompt-len", "8", "--serve-requests",
+                           "12", "--serve-rate", "200"]) == 0
+    text = capsys.readouterr().out
+    assert "sharding pruned-FFN plans over 1 rank(s)" in text
+    assert "eager) in" in text and "lockstep" not in text
+    assert "12/12 ok (0 shed, 0 error)" in text
+    assert "recompiles after warmup: 0" in text
+    assert "plans built during serving: 0" in text
+    ds = tr.events(cat="dispatch", name="dispatch.sharded")
+    per_forward = 3 * tcfg.num_layers
+    assert ds and len(ds) % per_forward == 0
+    assert {(d["args"]["path"], d["args"]["n_shards"]) for d in ds} == \
+        {("loop", 1)}
+    batches = tr.events(cat="serve", name="serve.batch")   # no probe
+    assert len(ds) == per_forward * len(batches)
 
 
 def _smoke_f32():

@@ -41,8 +41,9 @@ from repro_torch.engine import ProgramCache  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import sparse as S  # noqa: E402
 from repro_torch.runtime import steps as R  # noqa: E402
-from repro_torch.serving import (BucketLadder, RequestShed,  # noqa: E402
-                                 Server, ServerClosed, loadgen, pack)
+from repro_torch.serving import (BucketLadder, Lockstep,  # noqa: E402
+                                 RequestShed, Server, ServerClosed, loadgen,
+                                 pack)
 
 EC = ExecutionConfig
 T = 120                          # seconds: every future, join and wait
@@ -393,6 +394,149 @@ def test_server_exhausted_retries_fail_the_future():
     with pytest.raises(OSError, match="permanent"):
         fut.result(timeout=T)
     srv.stop(timeout=T)
+
+
+# ------------------------------------------------- lockstep over a mesh ---
+
+
+class _Channel(Lockstep):
+    """A lockstep channel without a process group: the leader's messages
+    are recorded, a follower's are scripted."""
+
+    def __init__(self, rank, script=()):
+        self.rank, self.world = rank, 2
+        self.sent, self.script = [], list(script)
+
+    def send(self, op, batch=0, length=0, tokens=None):
+        self.sent.append((op, batch, length, tokens))
+
+    def recv(self):
+        return self.script.pop(0)
+
+
+def test_lockstep_leader_announces_every_build_and_call():
+    """The leader sends a build before each program it builds, WARM after
+    warmup, RUN with the packed tokens before each call, STOP after the
+    batcher ends; retries are off; a ladder the program cache cannot hold
+    whole is refused."""
+    fwd, state, vocab = _scorer()
+    lad = BucketLadder(lengths=(4,), batches=(1, 2))
+    ch = _Channel(0)
+    srv = Server(fwd, state, lad, lockstep=ch, name="t.lead")
+    assert srv.retry_attempts == 1
+    srv.warmup()
+    assert [m[:3] for m in ch.sent] == [("build", 1, 4), ("build", 2, 4),
+                                        ("warm", 0, 0)]
+    futs = [srv.submit(loadgen.make_tokens(n, vocab, seed=n))
+            for n in (3, 4)]
+    srv.start()
+    outs = [f.result(timeout=T) for f in futs]
+    srv.stop(timeout=T)
+    runs = [m for m in ch.sent if m[0] == "run"]
+    assert len(runs) == 1 and runs[0][1:3] == (2, 4)
+    np.testing.assert_array_equal(runs[0][3].numpy(), futs[0].packed)
+    assert ch.sent[-1][:3] == ("stop", 0, 0)
+    assert (srv.forwards, list(srv.ran)) == (1, [(2, 4)])
+    with torch.inference_mode():
+        want = fwd(state, torch.from_numpy(futs[0].packed))
+    for i, out in enumerate(outs):
+        assert torch.equal(out, want[i, :3 + i])
+    with pytest.raises(ValueError, match="keeps every bucket"):
+        Server(fwd, state, BucketLadder(lengths=tuple(range(1, 66)),
+                                        batches=(1,)), lockstep=_Channel(0))
+
+
+def test_lockstep_leader_failure_fails_the_rest_and_holds_the_followers():
+    """An execution error under lockstep: one attempt, that batch's and
+    every queued request's futures fail, later submits are refused, and
+    stop() raises without sending STOP."""
+    fwd, state, vocab = _scorer()
+    calls = []
+
+    class Dead(Server):
+        def _call_program(self, program, tokens):
+            calls.append(tuple(tokens.shape))
+            raise OSError("permanent fault")
+
+    ch = _Channel(0)
+    srv = Dead(fwd, state, BucketLadder(lengths=(4,), batches=(1,)),
+               lockstep=ch, name="t.lead_dead").warmup()
+    futs = [srv.submit(loadgen.make_tokens(2, vocab, seed=s))
+            for s in range(3)]
+    srv.start()
+    for f in futs:
+        with pytest.raises(OSError, match="permanent"):
+            f.result(timeout=T)
+    assert calls == [(1, 4)]
+    with pytest.raises(RuntimeError, match="failed under lockstep"):
+        srv.stop(timeout=T)
+    with pytest.raises(ServerClosed):
+        srv.submit(loadgen.make_tokens(2, vocab, seed=9))
+    assert "stop" not in [m[0] for m in ch.sent]
+
+
+def test_lockstep_failure_fails_the_rest_of_its_window_unrun():
+    """Two length buckets drained in one window, the first one's forward
+    raising: its RUN is the only one sent, and both buckets' futures and
+    the queued request's fail (the followers may still wait in the failed
+    bucket's collectives, so nothing more may run)."""
+    fwd, state, vocab = _scorer()
+    calls = []
+
+    def dead(st, tok):
+        calls.append(tuple(tok.shape))
+        raise OSError("permanent fault")
+
+    ch = _Channel(0)
+    srv = Server(dead, state, BucketLadder(lengths=(4, 8), batches=(1, 2)),
+                 lockstep=ch, batch_window_s=5.0, name="t.lead_window")
+    srv.warmup()
+    assert calls == []
+    futs = [srv.submit(loadgen.make_tokens(n, vocab, seed=n))
+            for n in (3, 7, 2)]
+    srv.start()
+    for f in futs:
+        with pytest.raises(OSError, match="permanent"):
+            f.result(timeout=T)
+    runs = [m[:3] for m in ch.sent if m[0] == "run"]
+    assert len(runs) == 1 and len(calls) == 1
+    assert runs[0][1:] == calls[0] in ((1, 4), (1, 8))
+    assert srv.forwards == 0
+    with pytest.raises(RuntimeError, match="failed under lockstep"):
+        srv.stop(timeout=T)
+    assert "stop" not in [m[0] for m in ch.sent]
+
+
+def test_lockstep_follower_runs_what_the_leader_says():
+    """A follower builds at BUILD, ends its warmup at WARM, runs RUN's
+    tokens, skips IDLE and returns at STOP; it takes no request."""
+    fwd, state, vocab = _scorer()
+    seen = []
+
+    def counted(st, tok):
+        seen.append(tok.clone())
+        return fwd(st, tok)
+
+    tok = torch.from_numpy(np.stack([loadgen.make_tokens(
+        4, vocab, seed=s) for s in (1, 2)]).astype(np.int64))
+    ch = _Channel(1, [("build", 1, 4, None), ("build", 2, 4, None),
+                      ("warm", 0, 0, None), ("run", 2, 4, tok),
+                      ("idle", 0, 0, None), ("stop", 0, 0, None)])
+    srv = Server(counted, state, BucketLadder(lengths=(4,), batches=(1, 2)),
+                 lockstep=ch, name="t.follow")
+    srv.warmup()
+    assert sorted(srv.programs.keys()) == [(1, 4), (2, 4)]
+    assert len(ch.script) == 3
+    for what in (lambda: srv.submit(tok[0].numpy()), srv.start,
+                 lambda: srv.probe(1, 4)):
+        with pytest.raises(RuntimeError, match="follows rank 0"):
+            what()
+    assert srv.forwards == 0
+    srv.follow()
+    assert ch.script == [] and len(seen) == 1
+    assert torch.equal(seen[0], tok)
+    assert srv.recompiles() == 0
+    assert (srv.forwards, list(srv.ran)) == (1, [(2, 4)])
 
 
 def test_server_concurrent_submitters():

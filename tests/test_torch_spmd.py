@@ -4,13 +4,17 @@ group — against the per-shard loop, forward and backward.
 One spawn of a 2-rank and one of a 3-rank group (a module-scoped fixture
 each) run every case inside the ranks (``tests/torch_spmd_worker.py``:
 rows and cols, epilogues,
-batched B, a ``SparseLinear`` through ``ensure_spmm_plans(mesh=)``, and
-the serve CLI's ``--mesh``); the results come back here and are held to
-the loop path on the same inputs.  The gradient rule: on every rank the
+batched B, a ``SparseLinear`` through ``ensure_spmm_plans(mesh=)``, the
+serve CLI's ``--mesh``, and online serving over the mesh, every rank's
+server in lockstep); the results come back here and are held to the loop
+path on the same inputs, and the served rows to the reference's and the
+port's unsharded pruned forwards.  The gradient rule: on every rank the
 gradients of vals, B, bias and residual equal the loop path's, with no
 world-size factor.  Rendezvous through a ``file://`` store; every wait
 has a limit."""
 import ast
+import dataclasses
+import functools
 import os
 import subprocess
 import sys
@@ -20,6 +24,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import numpy as np  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -30,11 +35,44 @@ JOIN_S = 120
 sys.path.insert(0, HERE)
 import torch_spmd_worker as W  # noqa: E402
 
+from repro.configs import get_smoke_config as jget_smoke  # noqa: E402
+from repro.core import PlanPolicy as JPlanPolicy  # noqa: E402
+from repro.launch import serve as jserve  # noqa: E402
+from repro.models import model as jmodel  # noqa: E402
+from repro_torch import convert  # noqa: E402
 from repro_torch.core import SparseMatrix  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 
 FWD_TOL = dict(rtol=2e-5, atol=2e-5)      # f32, the reference's bar
 GRAD_TOL = dict(rtol=1e-4, atol=1e-5)     # tests/test_spmm_grad.py:23
+# Served rows against a pruned forward at f32: the packages (and the
+# sharded and unsharded plans) differ only in summation order, the bar of
+# test_torch_serve.py's test_pruned_forward_matches_reference_f32.
+ROWS_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+@functools.lru_cache(maxsize=1)
+def _reference_params():
+    """The reference's smoke Llama params (PRNG key 0), as numpy."""
+    jcfg = dataclasses.replace(jget_smoke(W.ARCH), compute_dtype="float32")
+    return jax.tree.map(np.asarray,
+                        jmodel.init_params(jcfg, jax.random.PRNGKey(0)))
+
+
+@functools.lru_cache(maxsize=1)
+def _reference():
+    """The reference's pruned blocks and jitted pruned forward at f32
+    compute, compiled at the mesh server's bucket shapes."""
+    jcfg = dataclasses.replace(jget_smoke(W.ARCH), compute_dtype="float32")
+    jparams = _reference_params()
+    jblocks = jserve.prune_ffn_blocks(
+        jparams, jcfg, W.KEEP, policy=JPlanPolicy(method="rowsplit",
+                                                  tunedb=None))
+    jfwd = jax.jit(jserve.make_pruned_forward(jcfg))
+    for b in (1, 2):
+        jfwd(jparams, jblocks, np.zeros((b, W.ONLINE["prompt_len"]),
+                                        np.int32))
+    return jparams, jblocks, jfwd
 
 
 def _spawn(world: int, tmp) -> list:
@@ -50,6 +88,12 @@ def _spawn(world: int, tmp) -> list:
     deadline = time.monotonic() + JOIN_S
     logs = []
     try:
+        # The ranks' last stage reads the reference's params: written
+        # whole, then renamed, while the ranks run their first cases.
+        with open(tmp / "params.part", "wb") as f:
+            np.save(f, _reference_params(), allow_pickle=True)
+        os.replace(tmp / "params.part", tmp / "params.npy")
+        _reference()
         for p in procs:
             out, _ = p.communicate(
                 timeout=max(1.0, deadline - time.monotonic()))
@@ -146,6 +190,93 @@ def test_serve_cli_mesh_matches_unsharded(group, tmp_path):
     want = torch.load(path)
     got = torch.load(out_dir / "logits.pt")
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def _served(results):
+    """Rank 0's served requests, and their bucket matrices, each once."""
+    served = results[0]["online"]["served"]
+    mats = {r["packed"].tobytes(): r["packed"] for r in served}
+    return served, mats
+
+
+def _hold_rows(served, mats, forward):
+    want = {key: forward(mat) for key, mat in mats.items()}
+    for r in served:
+        n = len(r["tokens"])
+        assert r["bucket"] == r["packed"].shape
+        np.testing.assert_array_equal(r["packed"][r["row"], :n],
+                                      r["tokens"])
+        got = want[r["packed"].tobytes()][r["row"], :n]
+        np.testing.assert_allclose(r["rows"].numpy(), got, **ROWS_TOL)
+
+
+def test_serve_online_mesh_rows_match_reference(group):
+    """Every request served over the mesh, its rows within 1e-4 of the
+    reference's pruned forward on the bucket matrix it was packed in."""
+    world, (results, _) = group
+    online = results[0]["online"]
+    assert online["ok"] == online["n"] == W.ONLINE["requests"]
+    assert all(res["online"]["spmd"] for res in results)
+    jparams, jblocks, jfwd = _reference()
+    served, mats = _served(results)
+    _hold_rows(served, mats, lambda mat: np.asarray(
+        jfwd(jparams, jblocks, mat.astype(np.int32))))
+
+
+def test_serve_online_mesh_rows_match_unsharded(group):
+    """The same rows against the port's unsharded pruned forward."""
+    world, (results, _) = group
+    cfg = W.serve_cfg()
+    params = convert.params_from_numpy(_reference_params(), cfg,
+                                       device="cpu")
+    blocks = serve.prune_ffn_blocks(params, cfg, W.KEEP)
+    base = serve.make_pruned_forward(cfg)
+    served, mats = _served(results)
+
+    def forward(mat):
+        with torch.inference_mode():
+            return base(params, blocks, torch.from_numpy(mat)).numpy()
+
+    _hold_rows(served, mats, forward)
+
+
+def test_serve_online_mesh_followers_run_the_leaders_buckets(group):
+    """Every rank ran the same buckets in the same order, each counted
+    where its program call returned: on the leader one call a served
+    bucket matrix (a fixed rate: no probe), on each follower one a RUN."""
+    world, (results, _) = group
+    ran = [res["online"]["ran"] for res in results]
+    forwards = [res["online"]["forwards"] for res in results]
+    _, mats = _served(results)
+    assert forwards == [len(mats)] * world
+    assert all(r == ran[0] for r in ran[1:]) and len(ran[0]) == len(mats)
+    assert set(ran[0]) <= {(1, 8), (2, 8)}
+    assert {r["bucket"] for r in results[0]["online"]["served"]} == \
+        set(ran[0])
+
+
+def test_serve_online_mesh_builds_nothing_after_warmup(group):
+    world, (results, _) = group
+    for r, res in enumerate(results):
+        online = res["online"]
+        assert (online["recompiles"], online["replans"]) == (0, 0), r
+        assert online["programs"] == 2, r
+
+
+def test_serve_cli_serve_mesh_over_group(group):
+    """``serve --serve --mesh WORLD`` inside the ranks' group: every rank
+    exits 0, and rank 0 alone prints the load's outcome."""
+    world, (results, _) = group
+    runs = [res["online_cli"] for res in results]
+    assert [r["rc"] for r in runs] == [0] * world
+    assert "12/12 ok (0 shed, 0 error)" in runs[0]["stdout"]
+    assert "recompiles after warmup: 0" in runs[0]["stdout"]
+    assert "plans built during serving: 0" in runs[0]["stdout"]
+    assert f"lockstep over {world} ranks, gloo collectives" in \
+        runs[0]["stdout"]
+    for r in runs[1:]:       # a follower prints its rank line alone
+        assert [ln.split(":")[0] for ln in r["stdout"].splitlines()] == \
+            [f"[serve] rank {runs.index(r)} of {world}"]
 
 
 def test_train_cli_spmm_shards_over_group(group):

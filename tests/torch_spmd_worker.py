@@ -6,24 +6,32 @@ for ``tests/test_torch_spmd.py`` (imports torch and repro_torch only).
 Every case builds the same seeded inputs as the parent test, runs the
 SPMD path (one shard a rank) forward and backward, and saves what it got
 to ``OUT_DIR/rank{RANK}.pt``; the parent holds it against the per-shard
-loop.  Last, ``train.main(... --spmm-shards WORLD)`` twice (a run, then
+loop.  Then ``train.main(... --spmm-shards WORLD)`` twice (a run, then
 its resume) and ``serve.main(... --mesh WORLD)`` on the smoke model; the
-CLIs leave the group they did not start up.
+CLIs leave the group they did not start up.  Last, online serving over
+the mesh: ``serve.serve_online`` on the smoke Llama at f32 with the
+params the parent saved (``OUT_DIR/params.npy``, the reference's, as
+numpy; the worker waits for the file), every rank in lockstep, rank 0 keeping each served request; and
+``serve.main(... --serve --mesh WORLD)``.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import datetime
 import io
 import os
 import sys
+import time
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch import convert
+from repro_torch.configs import get_smoke_config
 from repro_torch.core import CSR, Epilogue, ExecutionConfig
-from repro_torch.core import SparseMatrix
+from repro_torch.core import PlanPolicy, ShardSpec, SparseMatrix
 from repro_torch.distributed import spmm as dspmm
 from repro_torch.launch import mesh as launch_mesh
 from repro_torch.launch import serve, train
@@ -41,6 +49,16 @@ CASES = (
      (2,)),
 )
 M_, K_, N_ = 41, 24, 5
+# Online serving over the mesh: the smoke Llama at f32 compute, a fixed
+# offered rate, 12 requests of lengths 2-8 into batches of up to 2.
+ARCH, KEEP = "llama3.2-1b", 0.25
+ONLINE = dict(batch=2, prompt_len=8, requests=12, rate=400.0, seed=0)
+PARAMS_WAIT_S = 120      # the parent writes the params while ranks start
+
+
+def serve_cfg():
+    return dataclasses.replace(get_smoke_config(ARCH),
+                               compute_dtype="float32")
 
 
 def pattern(seed: int = 0) -> CSR:
@@ -90,6 +108,36 @@ def run_case(plan, a: CSR, ep, lead):
     return out
 
 
+def serve_online_mesh(mesh, out_dir: str) -> dict:
+    """``serve_online`` with the pruned FFNs sharded by rows over ``mesh``
+    (one shard a rank): what this rank ran, and on rank 0 every served
+    request's tokens, bucket, row, packed matrix and output rows."""
+    cfg = serve_cfg()
+    path = os.path.join(out_dir, "params.npy")
+    t_end = time.monotonic() + PARAMS_WAIT_S
+    while not os.path.exists(path):      # written whole, then renamed
+        if time.monotonic() > t_end:
+            raise TimeoutError(f"no {path} after {PARAMS_WAIT_S} s")
+        time.sleep(0.05)
+    tree = np.load(path, allow_pickle=True).item()
+    params = convert.params_from_numpy(tree, cfg, device="cpu")
+    policy = PlanPolicy(shards=ShardSpec(mesh=mesh, axis="data"))
+    rep = serve.serve_online(cfg, params, KEEP, policy=policy,
+                             keep_served=True, **ONLINE)
+    blocks = rep.server.state[1]
+    out = dict(ran=rep.ran, forwards=rep.forwards, programs=rep.programs,
+               replans=rep.replans,
+               recompiles=rep.recompiles,
+               spmd=all(sl.plan.meta.spmd_mesh() is not None
+                        for blk in blocks for sl in blk["mlp"].values()))
+    if rep.load is not None:
+        out.update(n=rep.load.n, ok=rep.load.ok, served=[
+            dict(tokens=tokens, bucket=fut.bucket, row=fut.row,
+                 packed=fut.packed, rows=fut.result())
+            for tokens, fut in rep.load.served])
+    return out
+
+
 def main(rank: int, world: int, store: str, out_dir: str) -> int:
     dist.init_process_group("gloo", init_method=f"file://{store}",
                             rank=rank, world_size=world,
@@ -133,6 +181,14 @@ def main(rank: int, world: int, store: str, out_dir: str) -> int:
         ["--smoke", "--prune-ffn", "0.25", "--device", "cpu", "--batch",
          "2", "--prompt-len", "8", "--mesh", str(world), "--logits-out",
          logits])
+    results["online"] = serve_online_mesh(rows_mesh, out_dir)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = serve.main(
+            ["--smoke", "--prune-ffn", "0.25", "--device", "cpu", "--serve",
+             "--batch", "2", "--prompt-len", "8", "--serve-requests", "12",
+             "--mesh", str(world)])
+    results["online_cli"] = dict(rc=rc, stdout=out.getvalue())
     torch.save(results, os.path.join(out_dir, f"rank{rank}.pt"))
     launch_mesh.shutdown()
     return 0
