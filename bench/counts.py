@@ -1,0 +1,74 @@
+"""Operations and compulsory bytes: the yardstick's arithmetic.
+
+Frozen here so that a change to the program cannot move it.  The two SpMM
+functions are copies of the port's ``obs/roofline.py`` ones; the rest
+counts a dense decoder's forward from the configuration's shapes and the
+nonzeros that pruning keeps, with no padding.
+"""
+from __future__ import annotations
+
+# NVIDIA H100 SXM data sheet, dense rates, at the full 700 W limit.
+PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
+PEAK_HBM_BYTES = 3.35e12
+
+
+def spmm_min_bytes(m: int, k: int, n: int, nnz: int, *, val_bytes: int = 4,
+                   idx_bytes: int = 4, out_bytes: int = 4) -> int:
+    """Compulsory traffic of one CSR SpMM: vals + col indices once, the
+    dense B panel once, the output C once."""
+    return (nnz * (val_bytes + idx_bytes) + k * n * val_bytes
+            + m * n * out_bytes)
+
+
+def spmm_flops(nnz: int, n: int) -> float:
+    """Useful flops of one SpMM: a multiply-add per (nonzero, column)."""
+    return 2.0 * nnz * n
+
+
+def kept_per_row(d_in: int, keep: float) -> int:
+    """Nonzeros a row of a weight keeps under per-row magnitude pruning
+    at ``keep``: the nearest whole number, at least 1."""
+    return max(1, min(int(round(keep * d_in)), d_in))
+
+
+def ffn_matrices(cfg: dict) -> list[tuple[str, int, int, int]]:
+    """The pruned FFN matrices of one layer as ``(name, m, k, nnz)``: the
+    SpMM computes C (m, n) = A (m, k) @ B (k, n), A the transposed weight,
+    so m is the weight's output width and k its input width."""
+    d, ff, keep = cfg["hidden_size"], cfg["intermediate_size"], cfg["keep"]
+    return [("w1", ff, d, ff * kept_per_row(d, keep)),
+            ("w3", ff, d, ff * kept_per_row(d, keep)),
+            ("w2", d, ff, d * kept_per_row(ff, keep))]
+
+
+def spmm_bound_s(m: int, k: int, n: int, nnz: int) -> float:
+    """The least time one f32 SpMM over ``n`` columns can take on the
+    card: the larger of its operations at the f32 peak and its compulsory
+    bytes (values, column indices, row pointers, B, C) at HBM's rate."""
+    byts = spmm_min_bytes(m, k, n, nnz) + (m + 1) * 4
+    return max(spmm_flops(nnz, n) / PEAK_F32_FLOPS, byts / PEAK_HBM_BYTES)
+
+
+def forward_spmm_bound_s(cfg: dict, tokens: int) -> float:
+    """Σ :func:`spmm_bound_s` over every FFN matrix of a forward of
+    ``tokens`` columns (a bucket's batch × length as launched)."""
+    one = sum(spmm_bound_s(m, k, tokens, nnz)
+              for _, m, k, nnz in ffn_matrices(cfg))
+    return cfg["num_hidden_layers"] * one
+
+
+def request_flops(cfg: dict, length: int) -> float:
+    """Model FLOPs of scoring one prompt of ``length`` tokens: the sparse
+    FFN at 2·nnz a token, the attention projections at 2·params a token
+    (biases not counted), causal attention (QKᵀ and PV over the keys at or
+    before each query), and the logits at 2·d·V a token."""
+    d, v = cfg["hidden_size"], cfg["vocab_size"]
+    h, kv = cfg["num_attention_heads"], cfg["num_key_value_heads"]
+    dh = cfg.get("head_dim") or d // h
+    proj = d * h * dh * 2 + d * kv * dh * 2
+    ffn = sum(nnz for *_, nnz in ffn_matrices(cfg))
+    pairs = length * (length + 1) // 2
+    attn = 2 * 2 * h * dh * pairs
+    per_layer = 2 * (proj + ffn) * length + attn
+    return cfg["num_hidden_layers"] * per_layer + 2.0 * d * v * length
