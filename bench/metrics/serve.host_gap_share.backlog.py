@@ -1,0 +1,4 @@
+"""serve.host_gap_share.backlog: see ``phases.host_gap_share``."""
+from phases import host_gap_share as read
+
+__all__ = ["read"]

@@ -26,8 +26,8 @@ from .metrics import (Counter, Gauge, Histogram, MetricFamily,
 from .roofline import (Roof, RooflineAccountant, fused_epilogue_ceiling,
                        measure_roof, plan_bwd_min_bytes, plan_min_bytes,
                        sddmm_min_bytes, spmm_flops, spmm_min_bytes)
-from .trace import (Tracer, disable, enable, event, get_tracer, is_enabled,
-                    span, tracing)
+from .trace import (Tracer, complete, disable, enable, event, get_tracer,
+                    is_enabled, span, tracing)
 
 # Process-global accountant: sites that own a device time for a known
 # program share it without import-order coupling.
@@ -35,8 +35,8 @@ accountant = RooflineAccountant()
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "MetricFamily", "MetricsRegistry",
-    "Roof", "RooflineAccountant", "Tracer", "accountant", "disable",
-    "dump_metrics", "enable", "event", "fused_epilogue_ceiling",
+    "Roof", "RooflineAccountant", "Tracer", "accountant", "complete",
+    "disable", "dump_metrics", "enable", "event", "fused_epilogue_ceiling",
     "get_tracer", "is_enabled", "measure_roof", "plan_bwd_min_bytes",
     "plan_min_bytes", "registry", "report", "reset", "sddmm_min_bytes",
     "span", "spmm_flops", "spmm_min_bytes", "trace", "tracing",

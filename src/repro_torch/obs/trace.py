@@ -36,6 +36,14 @@ passing through ``execute_plan``, so online serving shows ``dispatch``
 events only from its warmup calls and captures, never from replays -- as
 the reference's jitted forward shows them only while it traces.
 
+One clock: every ``ts`` is ``time.perf_counter_ns() / 1e3``, in µs -- the
+host's monotonic clock that ``time.perf_counter()`` reads, so a site may
+stamp a span from two ``perf_counter()`` readings it already took
+(:func:`complete`).  The export records it as ``otherData.clock =
+"perf_counter_us"``; a marker put on the card at a known
+``perf_counter()`` reading inside a ``torch.profiler`` capture lays the
+exported spans over the capture's device operations.
+
 Event args are Python values taken from plan metadata and shapes, never
 read from a device tensor: a read would synchronise, and inside a CUDA
 graph capture it would break the capture.  The ring and every counter
@@ -53,6 +61,8 @@ from collections import deque
 import torch
 
 DEFAULT_CAPACITY = 65536
+# What every event's ``ts`` reads (see the module docstring).
+CLOCK = "perf_counter_us"
 
 # Fast-path flag: instrumentation sites read this attribute directly.
 _enabled: bool = False
@@ -129,6 +139,7 @@ class Tracer:
         """The ring as a Chrome trace-event JSON object."""
         return {"traceEvents": self.events(), "displayTimeUnit": "ms",
                 "otherData": {"producer": "repro_torch.obs",
+                              "clock": CLOCK,
                               "dropped_events": self.dropped}}
 
     def export(self, path: str) -> str:
@@ -207,6 +218,18 @@ def span(name: str, cat: str = "", **args):
     if not _enabled:
         return _NULL_SPAN
     return _Span(name, cat, args)
+
+
+def complete(name: str, cat: str, t0: float, t1: float, **args) -> None:
+    """A span from ``t0`` to ``t1``, two ``time.perf_counter()`` readings
+    the site already took (a stretch that is no scope, such as a wait that
+    ends when a request arrives).  No profiler range; a no-op when tracing
+    is disabled."""
+    if not _enabled:
+        return
+    tr = _tracer
+    if tr is not None:
+        tr.add_complete(name, cat, t0 * 1e6, (t1 - t0) * 1e6, args)
 
 
 def event(name: str, cat: str = "", **args) -> None:

@@ -18,12 +18,42 @@ would only delay live ones), and transient execution failures retry with
 exponential backoff through ``repro_torch.distributed.fault.retry``.
 
 Counters on the global registry: ``serve_requests_total{outcome=ok|shed|
-error}``, ``serve_request_latency_us{phase=queue_wait|assemble|execute|
-total}``, ``serve_batch_occupancy`` (true requests / bucket batch) and
-``serve_retries_total``.  While tracing is on (``repro_torch.obs``): the
-``serve.warmup``, ``serve.batch`` and ``serve.execute`` spans and the
-``serve.enqueue``, ``serve.retry`` and ``serve.shed`` events, as the
-reference's server emits them.
+error}``, ``serve_request_latency_us{phase=queue_wait|batch_wait|total}``
+a request, ``serve_batch_occupancy`` (true requests / bucket batch),
+``serve_retries_total``, and two that are always on, for a bucket call:
+
+* ``serve_batcher_us{phase}`` -- the batcher thread's phase clock.  Every
+  stretch of its wall time from start to end lands in exactly one phase:
+  ``idle`` (blocked on an empty queue; observed once when a window's
+  first request arrives, and once when the batcher ends), ``window``
+  (from that first dequeue until the window closes or the largest batch
+  fills), then once a bucket call ``assemble`` (the first call of a
+  window also holds the window's deadline check and ``pack``), ``launch``
+  (the program call and the copy-out slices enqueued), ``sync`` (blocked
+  until the stream drains) and ``resolve`` (stamping and resolving the
+  futures, their done-callbacks included, which run on this thread).
+  The batcher synchronises its stream after every call, so outside
+  ``launch`` and ``sync`` the server's stream is empty: ``window``,
+  ``assemble`` and ``resolve`` are the card's idle time while the server
+  held requests, ``idle`` while it held none.
+* ``serve_call_device_us{batch,length}`` -- one a served call: on a card
+  the time between two CUDA events on the batcher's stream, one before
+  the program's token copy and one after the rows are copied out; on the
+  CPU the host time from launch to sync.
+
+A request's ``batch_wait`` runs from its dequeue to the start of its
+call's ``assemble`` (the window and every earlier bucket of its window),
+so ``queue_wait + batch_wait`` + its call's ``assemble``, ``launch`` and
+``sync`` is its ``total``.
+
+While tracing is on (``repro_torch.obs``): the ``serve.warmup``,
+``serve.idle``, ``serve.window``, ``serve.batch`` (assemble),
+``serve.execute`` (launch and sync) and ``serve.resolve`` spans and the
+``serve.enqueue``, ``serve.retry`` and ``serve.shed`` events.  Each
+request gets a server-wide ``rid`` at submit (``RequestFuture.rid``),
+carried by its enqueue and shed events; each window a ``window`` id and
+each bucket call a ``call`` id, on its spans, with the call's ``rids``
+and, on ``serve.execute``, its ``device_us``.
 
 Threads and streams: once :meth:`Server.start` has run, only the batcher
 thread runs programs.  A CUDA graph's output is static -- the next replay
@@ -88,6 +118,12 @@ _batch_occupancy = _metrics.histogram(
     "true requests / bucket batch per executed batch")
 _retries_total = _metrics.counter(
     "serve_retries_total", "transient execution failures retried")
+_batcher_us = _metrics.histogram(
+    "serve_batcher_us", "the batcher thread's wall time by phase",
+    labels=("phase",))
+_call_device_us = _metrics.histogram(
+    "serve_call_device_us", "device time of each served bucket call",
+    labels=("batch", "length"))
 
 _server_ids = itertools.count()
 
@@ -105,8 +141,10 @@ class RequestFuture(Future):
     ``done_s`` is the ``time.perf_counter()`` at which its result or error
     was set; once executed, ``bucket`` is the ``(batch, length)`` bucket
     that served it, ``row`` its row there and ``packed`` the bucket's int64
-    token matrix (host copy), so a client can replay the exact call."""
+    token matrix (host copy), so a client can replay the exact call.
+    ``rid`` is the request's server-wide id, stamped at submit."""
 
+    rid: int | None = None
     done_s: float | None = None
     bucket: tuple[int, int] | None = None
     row: int | None = None
@@ -126,6 +164,25 @@ class _Pending:
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.current_stream(device).synchronize()
+
+
+class _PhaseClock:
+    """The batcher's phase clock: each :meth:`lap` observes the time since
+    the previous one under a phase of ``serve_batcher_us``, so the phases
+    tile the batcher's wall time; ``t`` is where the current phase began
+    (a ``time.perf_counter()`` reading)."""
+
+    __slots__ = ("t",)
+
+    def __init__(self):
+        self.t = time.perf_counter()
+
+    def lap(self, phase: str, t: float | None = None) -> float:
+        """End the current phase at ``t`` (default now) as ``phase``;
+        returns where it began."""
+        t0, self.t = self.t, time.perf_counter() if t is None else t
+        _batcher_us.labels(phase=phase).observe((self.t - t0) * 1e6)
+        return t0
 
 
 class Lockstep:
@@ -235,6 +292,16 @@ class Server:
         self.lockstep = lockstep
         self._failure: BaseException | None = None
         self._released = False
+        self._rids = itertools.count()
+        self._windows = itertools.count()
+        self._calls = itertools.count()
+        # One pair of timing events on a card, reused by every served call
+        # (the batcher synchronises each call before the next); CUDA makes
+        # an event at its first record.
+        self._events = (
+            (torch.cuda.Event(enable_timing=True),
+             torch.cuda.Event(enable_timing=True))
+            if self.device.type == "cuda" else None)
         if lockstep is not None:
             self.retry_attempts = 1
             if len(ladder.shapes()) > self.programs.maxsize:
@@ -335,14 +402,15 @@ class Server:
         p = _Pending(tokens=tokens.astype(np.int64), length=length,
                      deadline=None if limit is None else now + limit,
                      future=RequestFuture(), t_submit=now)
+        p.future.rid = next(self._rids)
         try:
             self._q.put_nowait(p)
         except _queue.Full:
             self._shed(p, f"queue full (depth {self.queue_depth})")
             return p.future
         if _trace._enabled:
-            _trace.event("serve.enqueue", cat="serve", length=length,
-                         depth=self._q.qsize())
+            _trace.event("serve.enqueue", cat="serve", rid=p.future.rid,
+                         length=length, depth=self._q.qsize())
         return p.future
 
     # ---------------------------------------------------------- batcher ---
@@ -435,16 +503,20 @@ class Server:
             self._batches()
 
     def _batches(self) -> None:
+        clock = _PhaseClock()
         while True:
             try:
                 first = self._q.get(timeout=self._poll_s)
             except _queue.Empty:
                 if self._stop.is_set():
+                    clock.lap("idle")
                     return
                 if self.lockstep is not None:
                     self.lockstep.send(Lockstep.IDLE)
                 continue
             first.t_dequeue = time.perf_counter()
+            t_idle = clock.lap("idle", first.t_dequeue)
+            window = next(self._windows)
             batch = [first]
             # Continuous assembly: after the first request, keep draining
             # until the window closes or the largest batch bucket fills --
@@ -460,13 +532,21 @@ class Server:
                     break
                 p.t_dequeue = time.perf_counter()
                 batch.append(p)
-            self._serve_batch(batch)
+            t_window = clock.lap("window")
+            if _trace._enabled:
+                _trace.complete("serve.idle", "serve", t_idle, t_window,
+                                window=window, n=len(batch))
+                _trace.complete("serve.window", "serve", t_window, clock.t,
+                                window=window, n=len(batch))
+            self._serve_batch(batch, clock, window)
             if self._failure is not None:
                 self._closed = True
                 self._fail_queued(self._failure)
+                clock.lap("idle")
                 return
 
-    def _serve_batch(self, batch: list[_Pending]) -> None:
+    def _serve_batch(self, batch: list[_Pending], clock: _PhaseClock,
+                     window: int) -> None:
         now = time.perf_counter()
         live: list[_Pending] = []
         for p in batch:
@@ -482,13 +562,22 @@ class Server:
                 # of the window fails unrun.
                 self._fail(ps, self._failure)
             else:
-                self._execute(pb.batch, pb.length, ps)
+                self._execute(pb.batch, pb.length, ps, clock, window)
 
-    def _execute(self, bb: int, lb: int, ps: list[_Pending]) -> None:
-        t_asm0 = time.perf_counter()
+    def _execute(self, bb: int, lb: int, ps: list[_Pending],
+                 clock: _PhaseClock, window: int) -> None:
+        # The call's assemble began where the clock's last phase ended: at
+        # the window's close for a window's first call, else at the end of
+        # the previous call's resolve.
+        t_asm0 = clock.t
+        call = next(self._calls)
+        ids = ({"call": call, "window": window,
+                "rids": [p.future.rid for p in ps]}
+               if _trace._enabled else {})
+        phase = "assemble"
         try:
             with _trace.span("serve.batch", cat="serve", batch=bb,
-                             length=lb, fill=len(ps)):
+                             length=lb, fill=len(ps), **ids):
                 mat = np.full((bb, lb), self.pad_id, np.int64)
                 for i, p in enumerate(ps):
                     mat[i, :p.length] = p.tokens
@@ -497,42 +586,64 @@ class Server:
                 tok = torch.from_numpy(mat).to(self.device)
                 program = self.program(bb, lb)
             _batch_occupancy.observe(len(ps) / bb)
-            t_exec0 = time.perf_counter()
+            clock.lap("assemble")
+            t_exec0, phase = clock.t, "launch"
             with _trace.span("serve.execute", cat="serve", batch=bb,
-                             length=lb):
-                rows = fault.retry(lambda: self._run(program, tok, ps),
-                                   attempts=self.retry_attempts,
-                                   backoff=self.retry_backoff_s,
-                                   exceptions=self.transient,
-                                   on_retry=self._on_retry)
+                             length=lb, **ids) as sp:
+                rows, t_launched = fault.retry(
+                    lambda: self._run(program, tok, ps),
+                    attempts=self.retry_attempts,
+                    backoff=self.retry_backoff_s,
+                    exceptions=self.transient, on_retry=self._on_retry)
+                t_done = time.perf_counter()
+                if self._events is not None:
+                    device_us = self._events[0].elapsed_time(
+                        self._events[1]) * 1e3
+                else:
+                    device_us = (t_done - t_exec0) * 1e6
+                sp.set(device_us=device_us)
         except Exception as e:
             # Futures must never hang: the whole bucket batch fails
             # together once retries are exhausted.
+            clock.lap(phase)
             self._fail(ps, e)
+            clock.lap("resolve")
             if self.lockstep is not None:
                 self._failure = e
             return
-        t_done = time.perf_counter()
-        for p, row in zip(ps, rows):
-            _latency.labels(phase="queue_wait").observe(
-                (p.t_dequeue - p.t_submit) * 1e6)
-            _latency.labels(phase="assemble").observe(
-                (t_exec0 - t_asm0) * 1e6)
-            _latency.labels(phase="execute").observe(
-                (t_done - t_exec0) * 1e6)
-            _latency.labels(phase="total").observe(
-                (t_done - p.t_submit) * 1e6)
-            _requests_total.labels(outcome="ok").inc()
-            p.future.done_s = t_done
-            p.future.set_result(row)
+        clock.lap("launch", t_launched)
+        clock.lap("sync", t_done)
+        _call_device_us.labels(batch=bb, length=lb).observe(device_us)
+        with _trace.span("serve.resolve", cat="serve", call=call):
+            for p, row in zip(ps, rows):
+                _latency.labels(phase="queue_wait").observe(
+                    (p.t_dequeue - p.t_submit) * 1e6)
+                _latency.labels(phase="batch_wait").observe(
+                    (t_asm0 - p.t_dequeue) * 1e6)
+                _latency.labels(phase="total").observe(
+                    (t_done - p.t_submit) * 1e6)
+                _requests_total.labels(outcome="ok").inc()
+                p.future.done_s = t_done
+                p.future.set_result(row)
+        clock.lap("resolve")
 
-    def _run(self, program, tok: torch.Tensor, ps: list[_Pending]) -> list:
+    def _run(self, program, tok: torch.Tensor,
+             ps: list[_Pending]) -> tuple[list, float]:
         """One program call and the requests' rows copied out of its output
-        (before the bucket's next replay overwrites it), synchronised."""
+        (before the bucket's next replay overwrites it), synchronised; on
+        a card between the server's two timing events.  Returns the rows
+        and the ``perf_counter()`` reading at which the host had enqueued
+        them, before it waited for the stream."""
+        ev = self._events
+        if ev is not None:
+            ev[0].record()
         out = self._call_program(program, tok)
         rows = [self._slice(out, i, p.length) for i, p in enumerate(ps)]
+        if ev is not None:
+            ev[1].record()
+        t_launched = time.perf_counter()
         _sync(self.device)
-        return rows
+        return rows, t_launched
 
     def _call_program(self, program, tokens: torch.Tensor):
         """One program call: the choke point of every call, where a
@@ -563,7 +674,7 @@ class Server:
     def _shed(self, p: _Pending, why: str) -> None:
         _requests_total.labels(outcome="shed").inc()
         if _trace._enabled:
-            _trace.event("serve.shed", cat="serve", length=p.length,
-                         why=why)
+            _trace.event("serve.shed", cat="serve", rid=p.future.rid,
+                         length=p.length, why=why)
         p.future.done_s = time.perf_counter()
         p.future.set_exception(RequestShed(why))

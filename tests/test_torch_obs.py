@@ -487,6 +487,7 @@ def test_port_trace_passes_reference_validator(tmp_path, capsys):
     assert "no events in required category 'serve'" in err
     doc = json.load(open(path))
     assert doc["otherData"] == {"producer": "repro_torch.obs",
+                                "clock": "perf_counter_us",
                                 "dropped_events": 0}
 
 

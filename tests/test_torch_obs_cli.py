@@ -78,9 +78,16 @@ def test_serve_online_trace(tmp_path, capsys):
     names, evs = _names(trace)
     assert names["serve.enqueue"] == 10
     assert names["serve.warmup"] == 1 and names["serve.shed"] == 0
-    assert names["serve.execute"] == names["serve.batch"] >= 1
+    assert names["serve.execute"] == names["serve.batch"] == \
+        names["serve.resolve"] >= 1
+    assert names["serve.window"] == names["serve.idle"] >= 1
     fills = sum(e["args"]["fill"] for e in evs if e["name"] == "serve.batch")
     assert fills == 10
+    enqueued = {e["args"]["rid"] for e in evs if e["name"] == "serve.enqueue"}
+    called = [r for e in evs if e["name"] == "serve.batch"
+              for r in e["args"]["rids"]]
+    assert len(enqueued) == len(called) == 10
+    assert enqueued == set(called)
     # The batcher thread emits the batch spans, the caller the enqueues.
     tids = {e["name"]: e["tid"] for e in evs}
     assert tids["serve.execute"] != tids["serve.enqueue"]

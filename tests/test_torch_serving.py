@@ -17,7 +17,10 @@ the gap is last-bit (7.5e-9 on this file's scorer).
 
 Every future, join and wait has a timeout: nothing here can hang.
 """
+import collections
+import sys
 import threading
+import time
 from types import SimpleNamespace
 
 import pytest
@@ -540,26 +543,34 @@ def test_lockstep_follower_runs_what_the_leader_says():
 
 
 def test_server_concurrent_submitters():
-    """Many client threads racing submit: every request served once."""
+    """Many client threads racing submit, the interpreter switching
+    threads often: every request served once, each with its own rid."""
     fwd, state, vocab = _scorer()
     srv = Server(fwd, state, BucketLadder(lengths=(8,), batches=(1, 4)),
                  name="t.conc").start()
-    results = {}
+    results, rids = {}, {}
 
     def client(i):
         n = 1 + (i % 8)
         fut = srv.submit(loadgen.make_tokens(n, vocab, seed=i))
+        rids[i] = fut.rid
         results[i] = tuple(fut.result(timeout=T).shape) == (n, vocab)
 
     threads = [threading.Thread(target=client, args=(i,))
-               for i in range(12)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(timeout=T)
-        assert not t.is_alive()
+               for i in range(48)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=T)
+            assert not t.is_alive()
+    finally:
+        sys.setswitchinterval(interval)
     srv.stop(timeout=T)
-    assert len(results) == 12 and all(results.values())
+    assert len(results) == 48 and all(results.values())
+    assert sorted(rids.values()) == list(range(48))
     assert srv.recompiles() == 0
 
 
@@ -677,22 +688,232 @@ def test_loadgen_rejects_degenerate_schedules():
         loadgen.poisson_schedule(1, 0.0, (1, 4))
 
 
+def _children(name):
+    fam = obs.registry.get(name)
+    return {} if fam is None else {tuple(c.labels.items()): c
+                                   for c in fam.children()}
+
+
+def _counts(name):
+    return {k: c.count for k, c in _children(name).items()}
+
+
+def _sums(name):
+    return {k: c.sum for k, c in _children(name).items()}
+
+
+def _delta(after, before):
+    return {k: v - before.get(k, 0) for k, v in after.items()
+            if v - before.get(k, 0)}
+
+
+PHASES = ("idle", "window", "assemble", "launch", "sync", "resolve")
+
+
 def test_server_latency_phases_recorded():
+    """A request observes queue_wait, batch_wait and total once; its call
+    observes assemble, launch, sync and resolve once, its window window
+    once; idle closes at the window's first dequeue and at the end."""
     fwd, state, vocab = _scorer()
-    fam = obs.registry.get("serve_request_latency_us")
-
-    def counts():
-        return {tuple(c.labels.items()): c.count for c in fam.children()}
-
-    before = counts()
+    before = _counts("serve_request_latency_us")
+    phases = _counts("serve_batcher_us")
     srv = Server(fwd, state, BucketLadder(lengths=(4,), batches=(1,)),
                  name="t.lat").start()
     srv.submit(loadgen.make_tokens(3, vocab, seed=2)).result(timeout=T)
     srv.stop(timeout=T)
-    after = counts()
-    for phase in ("queue_wait", "assemble", "execute", "total"):
-        key = (("phase", phase),)
-        assert after.get(key, 0) - before.get(key, 0) == 1, phase
+    assert _delta(_counts("serve_request_latency_us"), before) == {
+        (("phase", p),): 1 for p in ("queue_wait", "batch_wait", "total")}
+    want = {(("phase", p),): 1 for p in PHASES}
+    want[(("phase", "idle"),)] = 2
+    assert _delta(_counts("serve_batcher_us"), phases) == want
+
+
+def _scripted(monkeypatch, launch_s, sync_s):
+    """The scorer with a scripted cost a served call: its forward sleeps
+    ``launch_s(i)`` and the stream's sync ``sync_s(i)`` on the ``i``-th
+    call after ``arm()`` (the CPU's sync drains nothing by itself)."""
+    from repro_torch.serving import server as server_mod
+    fwd, state, vocab = _scorer()
+    calls = {"fwd": None, "sync": None}
+
+    def forward(st, tokens):
+        if calls["fwd"] is not None:
+            time.sleep(launch_s(calls["fwd"]))
+            calls["fwd"] += 1
+        return fwd(st, tokens)
+
+    def sync(device):
+        if calls["sync"] is not None:
+            time.sleep(sync_s(calls["sync"]))
+            calls["sync"] += 1
+
+    def arm():
+        calls["fwd"] = calls["sync"] = 0
+
+    monkeypatch.setattr(server_mod, "_sync", sync)
+    return forward, state, vocab, arm
+
+
+def test_server_phases_tile_the_batchers_wall_time(monkeypatch):
+    """Six calls that each launch for 10 ms and sync for 20 ms, 40 ms
+    apart: the six phases sum to the wall time from start() to stop()
+    within 5 %, sync holds at least the scripted syncs, launch the
+    scripted forwards, and a call's device time (on the CPU, launch to
+    sync) both."""
+    forward, state, vocab, arm = _scripted(
+        monkeypatch, lambda i: 0.01, lambda i: 0.02)
+    srv = Server(forward, state, BucketLadder(lengths=(4,), batches=(1,)),
+                 name="t.tile").warmup()
+    arm()
+    sums, dev = _sums("serve_batcher_us"), _sums("serve_call_device_us")
+    t0 = time.perf_counter()
+    srv.start()
+    for i in range(6):
+        srv.submit(loadgen.make_tokens(3, vocab, seed=i)).result(timeout=T)
+        time.sleep(0.04)
+    srv.stop(timeout=T)
+    wall = time.perf_counter() - t0
+    got = {k[0][1]: v / 1e6 for k, v in
+           _delta(_sums("serve_batcher_us"), sums).items()}
+    assert set(got) == set(PHASES)
+    assert 0.95 * wall <= sum(got.values()) <= wall
+    assert got["sync"] >= 6 * 0.02 and got["launch"] >= 6 * 0.01
+    assert got["idle"] >= 5 * 0.04
+    (device_us,) = _delta(_sums("serve_call_device_us"), dev).values()
+    assert device_us / 1e6 >= 6 * (0.01 + 0.02)
+
+
+def test_later_bucket_of_a_window_waits_out_the_earlier_calls(monkeypatch):
+    """Two lengths in one window run as two bucket calls, one after the
+    other: the second call's request shows a batch_wait of at least the
+    first call's launch + sync (here 30 + 30 ms, the second call's
+    nothing)."""
+    forward, state, vocab, arm = _scripted(
+        monkeypatch, lambda i: 0.03 if i == 0 else 0.0,
+        lambda i: 0.03 if i == 0 else 0.0)
+    srv = Server(forward, state,
+                 BucketLadder(lengths=(4, 8), batches=(1, 2)),
+                 name="t.bwait").warmup()
+    futs = [srv.submit(loadgen.make_tokens(n, vocab, seed=n))
+            for n in (3, 7)]
+    fams = [obs.registry.get(n) for n in ("serve_request_latency_us",
+                                          "serve_batcher_us")]
+    for fam in fams:
+        fam.reset()
+    arm()
+    srv.start()
+    for f in futs:
+        f.result(timeout=T)
+    srv.stop(timeout=T)
+    assert {f.bucket for f in futs} == {(1, 4), (1, 8)}
+    wait = fams[0].labels(phase="batch_wait").snapshot()
+    launch = fams[1].labels(phase="launch").snapshot()
+    sync = fams[1].labels(phase="sync").snapshot()
+    assert wait["count"] == launch["count"] == sync["count"] == 2
+    assert launch["max"] >= 3e4 and sync["max"] >= 3e4
+    assert wait["min"] < launch["max"]
+    assert wait["max"] >= launch["max"] + sync["max"]
+
+
+def test_call_device_time_once_a_served_call_by_bucket():
+    """serve_call_device_us: one observation a served call under its
+    bucket's labels; the probe and the programs' build observe none."""
+    fwd, state, vocab = _scorer()
+    before = _counts("serve_call_device_us")
+    srv = Server(fwd, state,
+                 BucketLadder(lengths=(4, 8), batches=(1, 2, 4)),
+                 name="t.dev").warmup()
+    srv.probe(2, 8)
+    assert _delta(_counts("serve_call_device_us"), before) == {}
+    futs = [srv.submit(loadgen.make_tokens(n, vocab, seed=n))
+            for n in (3, 7, 8)]
+    srv.start()
+    for f in futs:
+        f.result(timeout=T)
+    srv.stop(timeout=T)
+    assert _delta(_counts("serve_call_device_us"), before) == {
+        (("batch", "1"), ("length", "4")): 1,
+        (("batch", "2"), ("length", "8")): 1}
+
+
+def test_traced_requests_land_in_exactly_one_call():
+    """Under tracing: every enqueued rid is in one call's rids, and only
+    one; a call's batch, execute and resolve spans share its call id; each
+    window has its idle and window spans; a span's ts lies between two
+    perf_counter() reads around the run; the export names its clock."""
+    fwd, state, vocab = _scorer()
+    lad = BucketLadder(lengths=(4, 8), batches=(1, 2))
+    with obs.tracing() as tr:
+        t0 = time.perf_counter()
+        srv = Server(fwd, state, lad, name="t.rids").warmup()
+        futs = [srv.submit(loadgen.make_tokens(n, vocab, seed=i))
+                for i, n in enumerate((3, 7, 2, 8, 5))]
+        srv.start()
+        for f in futs:
+            f.result(timeout=T)
+        futs.append(srv.submit(loadgen.make_tokens(4, vocab, seed=9)))
+        futs[-1].result(timeout=T)
+        srv.stop(timeout=T)
+        t1 = time.perf_counter()
+        doc = tr.chrome_trace()
+    evs = [e for e in doc["traceEvents"] if e["cat"] == "serve"]
+    by = collections.defaultdict(list)
+    for e in evs:
+        by[e["name"]].append(e)
+    rids = [e["args"]["rid"] for e in by["serve.enqueue"]]
+    assert sorted(rids) == sorted(f.rid for f in futs) == list(range(6))
+    called = [r for e in by["serve.batch"] for r in e["args"]["rids"]]
+    assert sorted(called) == sorted(rids)
+    calls = {e["args"]["call"] for e in by["serve.batch"]}
+    assert len(calls) == len(by["serve.batch"]) >= 3
+    for name in ("serve.execute", "serve.resolve"):
+        assert sorted(e["args"]["call"] for e in by[name]) == sorted(calls)
+    for e in by["serve.execute"]:
+        assert e["args"]["device_us"] > 0
+        (b,) = [x for x in by["serve.batch"]
+                if x["args"]["call"] == e["args"]["call"]]
+        assert e["args"]["rids"] == b["args"]["rids"]
+        assert e["args"]["window"] == b["args"]["window"]
+    windows = {e["args"]["window"] for e in by["serve.batch"]}
+    for name in ("serve.idle", "serve.window"):
+        assert {e["args"]["window"] for e in by[name]} == windows
+        assert len(by[name]) == len(windows)
+    assert sum(e["args"]["n"] for e in by["serve.window"]) == 6
+    for e in evs:
+        assert t0 * 1e6 <= e["ts"] <= e["ts"] + e.get("dur", 0) <= t1 * 1e6
+    assert doc["otherData"]["clock"] == "perf_counter_us"
+
+
+def test_untraced_server_records_nothing_and_still_counts(monkeypatch):
+    """Tracing off: the server enters no profiler range, reads no trace
+    clock and records no span or event; its histograms still count."""
+    from repro_torch.obs import trace as ttrace
+
+    def boom(*a, **k):
+        raise AssertionError("entered while tracing is off")
+
+    fwd, state, vocab = _scorer()
+    names = ("serve_batcher_us", "serve_call_device_us",
+             "serve_request_latency_us")
+    with obs.tracing() as tr:
+        obs.disable()
+        monkeypatch.setattr(torch.profiler, "record_function", boom)
+        monkeypatch.setattr(ttrace, "_now_us", boom)
+        monkeypatch.setattr(ttrace.Tracer, "record", boom)
+        before = [_counts(n) for n in names]
+        srv = Server(fwd, state, BucketLadder(lengths=(4,), batches=(1, 2)),
+                     name="t.off")
+        futs = [srv.submit(loadgen.make_tokens(3, vocab, seed=i))
+                for i in range(3)]
+        srv.start()
+        for f in futs:
+            f.result(timeout=T)
+        srv.stop(timeout=T)
+        assert len(tr) == 0 and tr.dropped == 0
+    got = [_delta(_counts(n), b) for n, b in zip(names, before)]
+    assert got[0][(("phase", "window"),)] >= 1
+    assert sum(got[1].values()) == got[0][(("phase", "launch"),)] >= 2
+    assert got[2][(("phase", "batch_wait"),)] == 3
 
 
 # ---------------------------------------------- the smoke Llama, served ---
