@@ -695,6 +695,85 @@ def profile_merge_call(fn) -> None:
                              "kernel and one fix-up")
 
 
+# Row-split's staged body where the benchmark runs it: C (batch, m, n) of
+# w1 and w2 at the Granite backlog's 8 x 256 (Granite-3.0-2B's FFN widths
+# are Llama-3.2-1B's), and k much larger than m at the Qwen2 backlog's
+# 4 x 256 (Qwen2-72B's w2 width, 2048 rows: the fewest whose tiles fill
+# the card); the plain version a block of STAGED_PLAIN_COLS columns at a
+# time.
+STAGED_PARITY = {"llama_w1": (8, 256), "llama_w2": (8, 256),
+                 "qwen2_w2_2048": (4, 256)}
+QWEN2_W2 = (2048, 29568)
+STAGED_PLAIN_COLS = 64
+
+
+def parity_staged(matrices, eps, dev) -> float:
+    """The row-split op (``ops.rowsplit_execute``, as the model calls it)
+    at STAGED_PARITY's launches, each epilogue: the rule must pick the
+    staged body, its C must equal a second call's and the warp-per-row
+    body's at one part bit for bit, and agree with the plain version at
+    the f32 bar; raises otherwise; returns the worst |error|."""
+    from repro_torch.core import PlanPolicy, build_plan
+    from repro_torch.kernels import _cuda, ops, ref, rowsplit_spmm
+    sms = _cuda.sm_count(dev)
+    worst, seed = 0.0, 400
+    for mname, (batch, n) in STAGED_PARITY.items():
+        a = matrices[mname]
+        plan = build_plan(a, PlanPolicy(method="rowsplit",
+                                        with_transpose=False))
+        m, k = a.shape
+        if not rowsplit_spmm.use_staged("f32x4", plan.fwd["ascending"], m,
+                                        n, batch, sms):
+            raise AssertionError(f"staged parity {mname} {batch}x{n}: the "
+                                 "rule does not pick the staged body")
+        max_abs = ratio = 0.0
+        for ename, ep in eps.items():
+            seed += 1
+            g = torch.Generator(device=dev).manual_seed(seed)
+            b = torch.randn(batch, k, n, generator=g, device=dev)
+            kw = dict(m=m, epilogue=ep)
+            if ep is not None and ep.bias:
+                kw["bias"] = torch.randn(m, generator=g, device=dev)
+            if ep is not None and ep.residual:
+                kw["residual"] = torch.randn(batch, m, n, generator=g,
+                                             device=dev)
+            what = f"staged parity {mname} {(m, k)} {batch}x{n} {ename}"
+            by_body = dict(rowsplit_spmm.LAUNCHES_BY_BODY)
+            got, again = (ops.rowsplit_execute(plan.fwd, a.vals, b,
+                                               impl="cuda", **kw)
+                          for _ in range(2))
+            check_body(what, rowsplit_spmm, by_body, "staged", calls=2)
+            by_body = dict(rowsplit_spmm.LAUNCHES_BY_BODY)
+            row = rowsplit_parts_call(plan.fwd, a.vals, b, m, 1, kw)
+            check_body(f"{what} r=1", rowsplit_spmm, by_body, "f32x4")
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"{what}: two calls differ")
+            if not torch.equal(got, row):
+                raise AssertionError(f"{what}: the staged body differs from "
+                                     "the warp-per-row body at r=1")
+            del again, row
+            res = kw.pop("residual", None)
+            for i in range(batch):
+                for c in range(0, n, STAGED_PLAIN_COLS):
+                    cs = slice(c, c + STAGED_PLAIN_COLS)
+                    if res is not None:
+                        kw["residual"] = res[i, :, cs]
+                    want = ref.rowsplit_execute_ref(
+                        plan.fwd, a.vals, b[i, :, cs], **kw)
+                    d, r = check_close(f"{what} batch {i} columns {c}+",
+                                       got[i, :, cs], want, TOL["float32"])
+                    max_abs, ratio = max(max_abs, d), max(ratio, r)
+            del got, want, b, res
+        print(f"parity rowsplit staged {mname:13s} {(m, k)} {batch}x{n} "
+              f"float32, epilogues {list(eps)}: the staged body by the "
+              f"rule, bit-equal to a second call and to r=1; vs plain max "
+              f"|d| {max_abs:.3e} (tol rtol {TOL['float32']['rtol']} atol "
+              f"{TOL['float32']['atol']}; worst ratio {ratio:.3f})")
+        worst = max(worst, max_abs)
+    return worst
+
+
 def parity_sddmm(matrices, dev) -> float:
     """The SDDMM kernel against its plain version on the card (through
     ``ops.sddmm``, one counted launch a call, its body held to
@@ -3064,6 +3143,7 @@ def attention(dev, card, reset_counts, read_counts) -> dict:
 # What ptxas reports, by source: (kernel name as mangled, label).
 PTXAS_KERNELS = {
     "rowsplit_spmm.cu": [("rowsplit_kernelILi1EfffEE", "rowsplit f32x4"),
+                         ("rowsplit_kernelILi3EfffEE", "rowsplit staged"),
                          ("rowsplit_kernelILi2E13__nv_bfloat16S1_S1_EE",
                           "rowsplit bf16x8"),
                          ("rowsplit_kernelILi0EfffEE", "rowsplit scalar")],
@@ -4137,6 +4217,8 @@ def analysis(dev, card, lib_path, roof_gb_s) -> dict:
                  for method in ("rowsplit", "rowgroup", "merge")}
         if mname != "w3":
             narrow[mname] = plans
+        if mname == "w1":
+            narrow_vals = a.vals
         for dt in dts:
             v = Variant(dt, dt, dt, "float32", None, None)
             tdt = getattr(torch, dt)
@@ -4181,6 +4263,20 @@ def analysis(dev, card, lib_path, roof_gb_s) -> dict:
     calls.append(("flash_attention", "flash 1x2048 bf16",
                   lambda: flash_attention.flash_attention_cuda(q, kk, vv),
                   models, 2 * (2 * q.numel() + kk.numel() + vv.numel())))
+    # Row-split's staged body: w1 at the Granite backlog's batch 8 x 256,
+    # wide enough for its rule.
+    p, spec = narrow["w1"]["rowsplit"], registry.get_method("rowsplit")
+    wide_b = torch.randn(8, LLAMA_FFN["w1"][1], 256, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(52))
+    models = spec.traffic(p, 256, 8, Variant(
+        "float32", "float32", "float32", "float32", None, None), lim)
+    if [mm.body for mm in models] != ["staged"]:
+        raise AssertionError(f"analysis: w1 at 8 x 256 models "
+                             f"{[mm.body for mm in models]}, not staged")
+    calls.append(("rowsplit_spmm", "rowsplit w1 float32 8x256", (
+        lambda pp=p, ss=spec, vv=narrow_vals, b3=wide_b:
+        ss.execute(pp.meta, pp.fwd, vv, b3, impl="cuda")), models,
+        R.plan_min_bytes(p.meta, 8 * 256, val_dtype="float32")))
     # The models alone at the online buckets' narrower widths (no launch):
     # what a warp requests when 2 or 8 of its lanes hold columns.
     for mname in ("w1", "w2"):
@@ -5113,22 +5209,41 @@ def long_spmm_hold(sl, x, dev, card) -> dict:
             raise AssertionError(f"layer 0 w1's plan is {plan.meta.method}"
                                  f", expected {method}")
         fwd = plan.fwd
+        by_body = dict(rowsplit_spmm.LAUNCHES_BY_BODY)
         got = kernels[method](fwd, a.vals, b, m)[0]
+        ran = [key for key, v in rowsplit_spmm.LAUNCHES_BY_BODY.items()
+               if v != by_body.get(key, 0)]
         want = torch.cat([execs[method](
             fwd, a.vals, b[0, :, c:c + LONG_PLAIN_COLS], m=m, impl="torch")
             for c in range(0, n, LONG_PLAIN_COLS)], dim=1)
         torch.cuda.synchronize()
         d, r = check_close(f"{method} at n={n}", got, want, TOL["float32"])
-        del got, want
+        del want
         ms = time_ms(lambda: kernels[method](fwd, a.vals, b, m), reps=3,
                      inner=3)
         out[method] = dict(n=n, nnz=nnz, ms=ms, bound_ms=bound, max_abs=d)
+        extra = ""
+        if method == "rowsplit":
+            # The body the rule picks, and the warp-per-row body beside it
+            # (bit-equal at one part; timed at the rule's parts).
+            row = kernels[method](fwd, a.vals, b, m, parts=1)[0]
+            torch.cuda.synchronize()
+            if ran == ["staged"] and not torch.equal(got, row):
+                raise AssertionError(f"long prefill at n={n}: the staged "
+                                     "body differs from r=1")
+            del row
+            out[method].update(body=ran, rows_ms=time_ms(
+                lambda: kernels[method](fwd, a.vals, b, m, staged=False),
+                reps=3, inner=3))
+            extra = (f"; body {ran}, the warp-per-row body "
+                     f"{out[method]['rows_ms']:.4f} ms")
+        del got
         print(f"long prefill {method} layer 0 w1 {(m, k)} nnz {nnz} n {n} "
               f"f32: kernel vs plain (blocks of {LONG_PLAIN_COLS} columns) "
               f"max |d| {d:.3e} (tol rtol {TOL['float32']['rtol']} atol "
               f"{TOL['float32']['atol']}; worst ratio {r:.3f}); kernel "
               f"{ms:.4f} ms, {ms / bound:.2f}x the 2*nnz*n bound {bound:.4f}"
-              f" ms; {card}")
+              f" ms{extra}; {card}")
     return out
 
 
@@ -5747,6 +5862,12 @@ def main() -> int:
             raise AssertionError(f"merge parity missed its schedule's edges: "
                                  f"a row across {spans} workers (want >= 3), "
                                  f"{idles} workers without a live slot")
+    qm, qk = QWEN2_W2
+    g = torch.Generator(device=dev).manual_seed(20)
+    worst["rowsplit_spmm"] = max(worst["rowsplit_spmm"], parity_staged(
+        dict(matrices, qwen2_w2_2048=prune_to_csr(
+            torch.randn(qm, qk, generator=g, device=dev) * qk ** -0.5,
+            KEEP)), eps, dev))
     worst["sddmm"] = parity_sddmm(dict(matrices, **zero_nnz, **merge_edges),
                                   dev)
     worst["moe_gemm"] = parity_moe(dev)

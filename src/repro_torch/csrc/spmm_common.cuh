@@ -23,8 +23,13 @@ enum Act : int { kNone = 0, kRelu = 1, kGelu = 2 };
 // columns with one 16-byte load, a warp covers 128; bf16x8 -- a lane reads
 // 8 bf16 columns, so a half-warp covers 128 and the two half-warps take
 // two rows at once; scalar -- 4-byte loads of columns lane + 32 q, for the
-// n and alignments the vector bodies do not take (n = 1, for example).
-enum SpmmBody : int { kBodyScalar = 0, kBodyF32x4 = 1, kBodyBf16x8 = 2 };
+// n and alignments the vector bodies do not take (n = 1, for example);
+// staged -- the row-split kernel's f32x4 body fed from B windows staged
+// in shared memory (csrc/rowsplit_spmm.cu), which the merge and SDDMM
+// kernels do not have.
+enum SpmmBody : int {
+  kBodyScalar = 0, kBodyF32x4 = 1, kBodyBf16x8 = 2, kBodyStaged = 3
+};
 
 constexpr int kWarp = 32;
 // Columns of C one lane owns: lane l of a warp handles columns

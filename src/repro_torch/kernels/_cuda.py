@@ -33,16 +33,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 ACT_CODES = {"none": 0, "relu": 1, "gelu": 2}
 # The bodies of the merge, row-split and SDDMM kernels, by the code their C
-# entries report (csrc/spmm_common.cuh, enum SpmmBody).
-BODIES = ("scalar", "f32x4", "bf16x8")
+# entries report (csrc/spmm_common.cuh, enum SpmmBody); ``staged`` is the
+# row-split kernel's alone.
+BODIES = ("scalar", "f32x4", "bf16x8", "staged")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # cols, slot_nz, vals, vals_dtype, b, b_dtype, bias, residual, act,
     # has_scale, scale, out, out_dtype, batch, m, l, nnz_pad, k, n, parts,
-    # device, stream, body (out)
+    # staged, device, stream, body (out)
     "repro_rowsplit_spmm": (_P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _F, _P,
-                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
                             ctypes.POINTER(_I)),
     # cols, lrow, slot_nz, tile, first, vals, vals_dtype, b, b_dtype, bias,
     # residual, act, has_scale, scale, out, out_dtype, carry, batch,

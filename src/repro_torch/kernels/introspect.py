@@ -279,7 +279,7 @@ def host(t) -> np.ndarray:
 # ------------------------------------------------- the SpMM bodies' lanes ---
 
 #: spmm_common.cuh enum SpmmBody, the template argument of the SpMM kernels
-SPMM_BODY_CODES = {"scalar": 0, "f32x4": 1, "bf16x8": 2}
+SPMM_BODY_CODES = {"scalar": 0, "f32x4": 1, "bf16x8": 2, "staged": 3}
 
 
 def spmm_layout(body: str) -> tuple[int, int, int]:

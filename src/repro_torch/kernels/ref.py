@@ -14,6 +14,7 @@ from repro_torch.core.epilogue import apply_epilogue
 
 from .flash_attention import NEG_INF
 from .merge_spmm import apply_vals, split_rows
+from .rowsplit_spmm import STAGED_WINDOW
 
 
 def spmm_dense_ref(a: CSR, b: torch.Tensor) -> torch.Tensor:
@@ -245,6 +246,94 @@ def rowsplit_schedule_ref(structure: dict, vals: torch.Tensor,
             part = torch.einsum("ml,mln->mn", ell_vals[:, s0:s1],
                                 b2.to(acc_dtype)[cols[:, s0:s1]])
             c = part if c is None else c + part
+        return _finish(c[:m], ep, bias_col, res2, odt)
+
+    res = residual if ep is not None and ep.residual else None
+    if b.dim() == 2:
+        return one(b, res)
+    return _map_leading(one, b, res)
+
+
+def rowsplit_staged_ref(structure: dict, vals: torch.Tensor,
+                        b: torch.Tensor, m: int, *, window: int = STAGED_WINDOW,
+                        epilogue=None, bias=None, residual=None,
+                        acc_dtype=torch.float32,
+                        out_dtype=None) -> torch.Tensor:
+    """The row-split kernel's staged body replayed in tensor ops: the same C
+    as :func:`rowsplit_schedule_ref` at one part, reached the staged way.
+
+    B is cut into windows of ``window`` rows (zero past k), taken in order.
+    Every row keeps a cursor into its slots; in a window it takes the run
+    of slots from the cursor whose columns lie below the window's end (a
+    dead slot's column is past every window), found a group of 32 slots at
+    a time as the lanes hold them and going on into the next group when a
+    whole group is taken, and reads each slot's B row from the window at
+    ``col - k0``.  The kernel walks the runs of a warp's rows in lockstep;
+    each row's own slots go in the same order.  Raises if a
+    slot is taken in a window its column is not in (its row's columns
+    descend: the kernel would read outside the stage) or a live slot is
+    never taken.  The products are then summed as
+    :func:`rowsplit_schedule_ref` sums them, in the order the slots were
+    taken.  Arguments as in :func:`rowsplit_execute_ref`.
+    """
+    odt = torch.promote_types(vals.dtype, b.dtype) if out_dtype is None \
+        else out_dtype
+    ep = epilogue
+    nnz_pad = vals.shape[0]
+    m_pad, l = structure["cols"].shape
+    k = b.shape[-2]
+    groups = -(-l // 32)
+    width = groups * 32
+    dev = structure["cols"].device
+    live = torch.nn.functional.pad(structure["slot_nz"] < nnz_pad,
+                                   (0, width - l))
+    big = torch.iinfo(torch.int64).max
+    cols = torch.nn.functional.pad(structure["cols"].long(), (0, width - l))
+    col_or_big = torch.where(live, cols, big)
+    windows = max(1, -(-k // window))
+    taken_in = torch.full((m_pad, width), -1, dtype=torch.int64, device=dev)
+    cur = torch.zeros(m_pad, dtype=torch.int64, device=dev)
+    lane = torch.arange(32, device=dev)
+    rows = torch.arange(m_pad, device=dev)
+    for w in range(windows):
+        kend = (w + 1) * window
+        while True:                 # the groups a window's runs reach
+            pos = cur % 32
+            at = (cur - pos)[:, None] + lane[None, :]       # the group
+            inb = at < width
+            elig = torch.where(inb, col_or_big[rows[:, None],
+                                               at.clamp(max=width - 1)],
+                               big) < kend
+            run = torch.cumprod((elig | (lane[None, :] < pos[:, None]))
+                                .long(), 1).bool() & (lane[None, :] >=
+                                                      pos[:, None])
+            cnt = run.sum(1)
+            taken_in[rows[:, None].expand_as(at)[run], at[run]] = w
+            cur = cur + cnt
+            if not bool(((cnt > 0) & (cur % 32 == 0)).any()):
+                break
+    took = taken_in >= 0
+    if bool((live & ~took).any()):
+        raise AssertionError("a live slot was never taken (a row's columns "
+                             "descend)")
+    k0 = taken_in.clamp(min=0) * window
+    if bool((took & ((cols < k0) | (cols >= k0 + window))).any()):
+        raise AssertionError("a slot was taken in a window its column is "
+                             "not in (a row's columns descend)")
+    ell_vals = torch.nn.functional.pad(apply_vals(structure, vals),
+                                       (0, width - l)).to(acc_dtype)
+    ell_vals = torch.where(took, ell_vals, 0)
+    off = torch.where(took, cols - k0, 0)
+    bias_col = bias.to(acc_dtype)[:, None] \
+        if ep is not None and ep.bias else None
+
+    def one(b2, res2):
+        wins = torch.nn.functional.pad(b2.to(acc_dtype),
+                                       (0, 0, 0, windows * window - k))
+        wins = wins.reshape(windows, window, -1)
+        brows = torch.where(took[..., None],
+                            wins[taken_in.clamp(min=0), off], 0)
+        c = torch.einsum("ml,mln->mn", ell_vals, brows)
         return _finish(c[:m], ep, bias_col, res2, odt)
 
     res = residual if ep is not None and ep.residual else None

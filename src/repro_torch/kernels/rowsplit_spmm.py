@@ -17,6 +17,16 @@
   bucket.  Its plain PyTorch version is
   ``repro_torch.kernels.ref.rowsplit_execute_ref``;
   ``ref.rowsplit_schedule_ref`` replays its schedule in tensor ops.
+* **The staged body** of the same kernel (:func:`use_staged`): where B is
+  float32, every row's live columns ascend (``structure["ascending"]``,
+  found once at plan time), B is at least a tile wide and the launch's
+  tiles of ``STAGED_ROWS`` rows by ``STAGED_COLS`` columns fill the card,
+  a block takes ``STAGED_ROWS`` rows of a (batch, column slice) and reads B
+  from windows of its panel that TMA stages in shared memory once per
+  block, instead of gathering a B row from L2 for every nonzero.  Same
+  sums in the same order: bit-equal to the f32x4 body at one part.
+  ``ref.rowsplit_staged_ref`` replays its windows and cursors in tensor
+  ops.
 """
 from __future__ import annotations
 
@@ -44,6 +54,24 @@ RESIDENT_WARPS_PER_SM = 32
 MAX_PARTS = 8
 MIN_PART_GROUPS = 4
 
+# The staged body (csrc/rowsplit_spmm.cu kStagedWarps, kStagedRowsPerWarp,
+# kStagedHalves, kStagedWindow, kStagedStages): its consumer warps and the
+# rows each owns, a block's columns (128 a half), the rows of B a stage of
+# shared memory holds and the stages.  It runs where B is at least
+# STAGED_COLS wide and the launch has at least STAGED_MIN_TILES_PER_SM tiles
+# (batch x row blocks x column slices) an SM: at n = 128 half of every tile
+# idles, and below a tile an SM the warp-per-row body, which spreads a
+# launch over more warps, was faster on the H100 (PERF.md §6, row 2: the
+# crossover grid).
+STAGED_WARPS = 24
+STAGED_ROWS_PER_WARP = 2
+STAGED_HALVES = 2
+STAGED_WINDOW = 64
+STAGED_STAGES = 3
+STAGED_ROWS = STAGED_WARPS * STAGED_ROWS_PER_WARP
+STAGED_COLS = 128 * STAGED_HALVES
+STAGED_MIN_TILES_PER_SM = 1
+
 # Slots of one block of rows that plan_rowsplit_structure fills at once.
 ELL_BLOCK_SLOTS = 1 << 26
 
@@ -66,6 +94,10 @@ def ell_slots(a: CSR, rows: torch.Tensor, l: int, *, tm: int = TM) -> dict:
     in CSR order, and every slot after the first dead one is dead (pad rows
     are all dead).  So the kernel ends a row at its first group of 32
     slots that holds a dead slot.
+
+    ``ascending`` (a bool, read once on the host here): every row's live
+    columns ascend (non-decreasing), as :func:`prune_to_csr` and
+    ``from_dense`` give them; the staged body takes only such structures.
     """
     i32, i64 = torch.int32, torch.int64
     dev = a.device
@@ -79,12 +111,14 @@ def ell_slots(a: CSR, rows: torch.Tensor, l: int, *, tm: int = TM) -> dict:
     col_ext = torch.cat([a.col_ind, a.col_ind.new_zeros(1)])
     cols = torch.where(valid, col_ext[safe], 0).to(i32)
     slot_nz = torch.where(valid, take, a.nnz_pad).to(i32)
+    ascending = bool(((cols[:, 1:] >= cols[:, :-1])
+                      | ~valid[:, 1:]).all())
     r = rows.shape[0]
     pad_rows = tm * (-(-r // tm)) - r
     cols = torch.nn.functional.pad(cols, (0, 0, 0, pad_rows))
     slot_nz = torch.nn.functional.pad(slot_nz, (0, 0, 0, pad_rows),
                                       value=a.nnz_pad)
-    return dict(cols=cols, slot_nz=slot_nz)
+    return dict(cols=cols, slot_nz=slot_nz, ascending=ascending)
 
 
 def plan_rowsplit_structure(a: CSR, *, l_pad: int, tl: int = DEFAULT_TL,
@@ -92,7 +126,8 @@ def plan_rowsplit_structure(a: CSR, *, l_pad: int, tl: int = DEFAULT_TL,
     """Phase 0, pattern-only: ELL slot structure (m_pad, L), L = l_pad↑tl.
 
     ``l_pad`` must be an upper bound on the longest row.  Values are
-    re-applied per call through ``slot_nz``.
+    re-applied per call through ``slot_nz``; ``ascending`` as in
+    :func:`ell_slots`.
     """
     l = max(tl, tl * (-(-l_pad // tl)))
     m_pad = tm * (-(-a.m // tm))
@@ -103,13 +138,15 @@ def plan_rowsplit_structure(a: CSR, *, l_pad: int, tl: int = DEFAULT_TL,
     # a block of rows at a time keeps them near ELL_BLOCK_SLOTS slots, so
     # a skewed matrix whose ELL fills much of the card still plans.
     block = max(1, ELL_BLOCK_SLOTS // l)
+    ascending = True
     for r0 in range(0, a.m, block):
         rows = torch.arange(r0, min(r0 + block, a.m), dtype=torch.int64,
                             device=a.device)
         part = ell_slots(a, rows, l, tm=1)
         cols[r0:r0 + rows.numel()] = part["cols"]
         slot_nz[r0:r0 + rows.numel()] = part["slot_nz"]
-    return dict(cols=cols, slot_nz=slot_nz)
+        ascending = ascending and part["ascending"]
+    return dict(cols=cols, slot_nz=slot_nz, ascending=ascending)
 
 
 def row_parts(m: int, n: int, l: int, batch: int, sm_count: int) -> int:
@@ -128,11 +165,30 @@ def row_parts(m: int, n: int, l: int, batch: int, sm_count: int) -> int:
     return r
 
 
+def staged_tiles(m: int, n: int, batch: int) -> int:
+    """The staged body's blocks: ``batch * ceil(m / STAGED_ROWS) *
+    ceil(n / STAGED_COLS)`` tiles."""
+    return batch * -(-m // STAGED_ROWS) * -(-n // STAGED_COLS)
+
+
+def use_staged(body: str, ascending: bool, m: int, n: int, batch: int,
+               sm_count: int) -> bool:
+    """Whether a launch of C (batch, m, n) runs the staged body: it would
+    run ``f32x4`` (``_cuda.body_for``), the structure's live columns ascend
+    in every row, n is at least STAGED_COLS, and the launch's tiles
+    (:func:`staged_tiles`) give each of the ``sm_count`` SMs at least
+    STAGED_MIN_TILES_PER_SM."""
+    return (body == "f32x4" and ascending and n >= STAGED_COLS
+            and staged_tiles(m, n, batch)
+            >= STAGED_MIN_TILES_PER_SM * sm_count)
+
+
 def rowsplit_spmm_cuda(structure: dict, vals: torch.Tensor,
                        b: torch.Tensor, m: int, *, epilogue=None,
                        bias=None, residual=None,
                        out_dtype: torch.dtype | None = None,
-                       parts: int | None = None) -> torch.Tensor:
+                       parts: int | None = None,
+                       staged: bool | None = None) -> torch.Tensor:
     """The kernel on the card: ``b`` (batch, k, n) row-major → C
     (batch, m, n) over the ELL block ``structure`` (``cols``/``slot_nz``
     (m_pad, L), m_pad >= m).
@@ -140,10 +196,13 @@ def rowsplit_spmm_cuda(structure: dict, vals: torch.Tensor,
     ``vals`` are the raw (nnz_pad,) values, gathered in-kernel through
     ``slot_nz``; ``epilogue`` with ``bias (m,)`` / ``residual
     (batch, m, n)`` per its flags is applied in float32 at the single
-    write, cast to ``out_dtype`` (default: b's dtype).  ``parts`` (1, 2,
-    4 or 8; default :func:`row_parts` on b's device) splits each row's
-    slot groups among that many warps.  Launches on the current stream
-    without synchronising; raises on any operand the kernel does not take.
+    write, cast to ``out_dtype`` (default: b's dtype).  ``staged`` (default:
+    :func:`use_staged` where ``parts`` is not given) runs the staged body;
+    True raises where the body would not be ``f32x4`` or the structure's
+    columns do not ascend.  Otherwise ``parts`` (1, 2, 4 or 8; default
+    :func:`row_parts` on b's device) splits each row's slot groups among
+    that many warps.  Launches on the current stream without
+    synchronising; raises on any operand the kernel does not take.
     """
     global LAUNCHES
     if not b.is_cuda:
@@ -167,24 +226,37 @@ def rowsplit_spmm_cuda(structure: dict, vals: torch.Tensor,
     if out_dtype not in _cuda.DTYPE_CODES:
         raise TypeError(f"the row-split kernel writes float32 or bfloat16, "
                         f"not {out_dtype}")
-    if parts is None:
-        parts = row_parts(m, n, l, batch, _cuda.sm_count(dev))
-    if parts not in (1, 2, 4, 8):
-        raise ValueError(f"parts must be 1, 2, 4 or 8, got {parts}")
     bias, residual, act, has_scale, scale = _cuda.epilogue_args(
         epilogue, bias, residual, device=dev, m=m, batch=batch, n=n)
+    body = _cuda.body_for(b.dtype, n, aligned=all(
+        t is None or t.data_ptr() % 16 == 0 for t in (b, residual)))
+    ascending = bool(structure.get("ascending", False))
+    if staged is None:
+        staged = parts is None and use_staged(
+            body, ascending, m, n, batch, _cuda.sm_count(dev))
+    elif staged and (body != "f32x4" or not ascending or parts not in
+                     (None, 1)):
+        raise ValueError(
+            f"the staged body takes float32 B with n % 4 == 0, 16-byte "
+            f"aligned, a structure whose columns ascend and one part; got "
+            f"the {body} body, ascending={ascending}, parts={parts}")
+    if parts is None:
+        parts = 1 if staged else row_parts(m, n, l, batch,
+                                           _cuda.sm_count(dev))
+    if parts not in (1, 2, 4, 8):
+        raise ValueError(f"parts must be 1, 2, 4 or 8, got {parts}")
     lib = _cuda.library()
     out = torch.empty((batch, m, n), dtype=out_dtype, device=dev)
-    body = ctypes.c_int(-1)
+    ran = ctypes.c_int(-1)
     _cuda.check(lib.repro_rowsplit_spmm(
         structure["cols"].data_ptr(), structure["slot_nz"].data_ptr(),
         vals.data_ptr(), _cuda.DTYPE_CODES[vals.dtype], b.data_ptr(),
         _cuda.DTYPE_CODES[b.dtype], _cuda.ptr(bias), _cuda.ptr(residual),
         act, has_scale, scale, out.data_ptr(), _cuda.DTYPE_CODES[out_dtype],
-        batch, m, l, vals.shape[0], k, n, parts, dev.index,
-        _cuda.stream_of(b), ctypes.byref(body)), "rowsplit_spmm")
+        batch, m, l, vals.shape[0], k, n, parts, int(staged), dev.index,
+        _cuda.stream_of(b), ctypes.byref(ran)), "rowsplit_spmm")
     LAUNCHES += 1
-    _cuda.count_launch(LAUNCHES_BY_BODY, body.value)
+    _cuda.count_launch(LAUNCHES_BY_BODY, ran.value)
     return out
 
 
@@ -196,6 +268,15 @@ def rowsplit_spmm_cuda(structure: dict, vals: torch.Tensor,
 K_BLOCK, K_WARPS_PER_BLOCK, K_SLICE_COLS = 256, 8, 128
 BLOCKS_PER_SM = 4
 SMEM_PARTIAL = 4 * K_WARPS_PER_BLOCK * K_SLICE_COLS
+# The staged body (csrc/rowsplit_spmm.cu kStagedThreads, kStagedSmem): its
+# consumer warps and the producer; in dynamic shared memory the ring, each
+# row's pairs of two groups of 32 slots (8 bytes a slot) and 128 bytes to
+# align the ring; the stages' "full" and "empty" mbarriers (static); one
+# block an SM (its __launch_bounds__).
+STAGED_THREADS = (STAGED_WARPS + 1) * 32
+STAGED_SMEM = (STAGED_STAGES * STAGED_WINDOW * STAGED_COLS * 4
+               + STAGED_ROWS * 2 * 32 * 8 + 128)
+SMEM_BARRIERS = 2 * 8 * STAGED_STAGES
 
 
 def _ell_walk(slot_nz, m: int, l: int, nnz_pad: int, parts: int) -> dict:
@@ -250,10 +331,16 @@ def ell_launch(label: str, structure: dict, *, m: int, k: int,
     vdt, bdt, odt = (I.dtype_name(d) for d in (vals_dtype, b_dtype,
                                                 out_dtype))
     vb, bb, ob = I.nbytes(vdt), I.nbytes(bdt), I.nbytes(odt)
-    parts = row_parts(m, n, l, batch, card.sms)   # rowsplit_spmm_cuda
     body = _cuda.body_for(getattr(torch, bdt), n)  # pick_body, aligned
-    # repro_rowsplit_spmm: n_slices, warps and blocks (rowsplit_spmm.cu
-    # :210-212); it returns before the launch when blocks == 0.
+    if use_staged(body, bool(structure.get("ascending", False)), m, n,
+                  batch, card.sms):
+        return _staged_launch(label, cols, slot_nz, m=m, k=k,
+                              nnz_pad=nnz_pad, n=n, batch=batch,
+                              dtypes=(vdt, bdt, odt), bias=bias,
+                              residual=residual)
+    parts = row_parts(m, n, l, batch, card.sms)   # rowsplit_spmm_cuda
+    # repro_rowsplit_spmm: n_slices, warps and blocks; it returns before
+    # the launch when blocks == 0.
     n_slices = -(-n // K_SLICE_COLS)
     warps = batch * m * n_slices * parts
     blocks = -(-warps // K_WARPS_PER_BLOCK)
@@ -310,6 +397,80 @@ def ell_launch(label: str, structure: dict, *, m: int, k: int,
         body=body, operands=tuple(ops), in_dtypes=(vdt, bdt),
         acc_dtype="float32", launched=blocks > 0, writers=writers,
         walks=walks, indices=indices)
+
+
+def _staged_launch(label, cols, slot_nz, *, m, k, nnz_pad, n, batch,
+                   dtypes, bias, residual):
+    """The model of a staged launch (``launch_staged`` in
+    rowsplit_spmm.cu): one block a (batch, STAGED_ROWS rows, STAGED_COLS
+    columns) tile.  Requested bytes: B once per row block (the TMA windows,
+    less what falls past k or n); each row's slot groups as its warp
+    fetches them (the first three, then one more after each group of 32
+    it takes whole); each live value gathered once; C stored once."""
+    from . import introspect as I
+    vdt, bdt, odt = dtypes
+    vb, bb, ob = I.nbytes(vdt), I.nbytes(bdt), I.nbytes(odt)
+    m_pad, l = slot_nz.shape
+    n_slices = -(-n // STAGED_COLS)
+    row_blocks = -(-m // STAGED_ROWS)
+    tiles = batch * row_blocks * n_slices
+    live = slot_nz[:m] < nnz_pad
+    lengths = live.sum(1)
+    groups = -(-l // 32)
+    lanes_g = np.minimum(32, l - 32 * np.arange(groups))
+    cum = np.concatenate([[0], np.cumsum(lanes_g)])
+    index = int(cum[np.minimum(3 + lengths // 32, groups)].sum())
+    per = batch * n_slices
+    ops = [
+        I.OperandAccess("cols", "int32", (m_pad, l), "in",
+                        read_bytes=4 * per * index),
+        I.OperandAccess("slot_nz", "int32", (m_pad, l), "in",
+                        read_bytes=4 * per * index),
+        I.OperandAccess("vals", vdt, (nnz_pad,), "in",
+                        read_bytes=vb * per * int(lengths.sum())),
+        I.OperandAccess("b", bdt, (batch, k, n), "in",
+                        read_bytes=bb * batch * row_blocks * k * n),
+        I.OperandAccess("out", odt, (batch, m, n), "out",
+                        write_bytes=ob * batch * m * n)]
+    # The epilogue runs a row's 128-column slices one store_row each.
+    slices = -(-n // K_SLICE_COLS)
+    if bias:
+        ops.append(I.OperandAccess("bias", "float32", (m,), "in",
+                                   read_bytes=4 * batch * m * slices))
+    if residual:
+        ops.append(I.OperandAccess("residual", "float32", (batch, m, n),
+                                   "in", read_bytes=4 * batch * m * n))
+    # B reaches shared memory by TMA: no warp loads it from global memory.
+    ops = [o if o.name != "b" else dataclasses.replace(o, warp=())
+           for o in _with_lanes(ops, cols, slot_nz, live, l, n, "f32x4",
+                                vb, bb, ob)]
+
+    def writers():
+        return np.ones((batch, m, slices), np.int64)
+
+    def walks():
+        rows = np.broadcast_to(np.arange(m)[:, None], live.shape)
+        return [I.Walk("slot_nz along a row", rows[live],
+                       slot_nz[:m][live]),
+                I.Walk("cols along a row (the windows)", rows[live],
+                       cols[:m][live], strict=False)]
+
+    def indices():
+        return [
+            I.IndexStream("cols of live slots (B rows)", cols[:m][live], k),
+            I.IndexStream("slot_nz of live slots (vals)",
+                          slot_nz[:m][live], nnz_pad)]
+
+    tv, to = I.CXX_TYPES[vdt], I.CXX_TYPES[odt]
+    return I.KernelLaunch(
+        label=label, symbol=I.template(
+            "rowsplit_kernel", I.SPMM_BODY_CODES["staged"], tv,
+            I.CXX_TYPES[bdt], to),
+        source="rowsplit_spmm.cu", grid=(tiles, 1, 1), block=STAGED_THREADS,
+        dynamic_smem=STAGED_SMEM, static_smem=I.static_smem(SMEM_BARRIERS),
+        min_blocks=1, body="staged", operands=tuple(ops),
+        in_dtypes=(vdt, bdt), acc_dtype="float32", launched=tiles > 0,
+        writers=writers, walks=walks, indices=indices)
 
 
 def _with_lanes(ops, cols, slot_nz, live, l, n, body, vb, bb, ob):

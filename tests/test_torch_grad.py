@@ -67,9 +67,11 @@ def _jplan_of(tp):
     """The reference SpmmPlan holding the port plan's arrays.  The two
     planners are array-equal (tests/test_torch_plan.py), so the big grid
     skips the reference planner's per-shape compiles; the Pallas cases
-    below plan with the reference's own planner."""
+    below plan with the reference's own planner.  The port's host flags
+    (row-split's ``ascending``) are not arrays and stay behind."""
     arrays = lambda d: None if d is None else {
-        name: jnp.asarray(t.numpy()) for name, t in d.items()}
+        name: jnp.asarray(t.numpy()) for name, t in d.items()
+        if isinstance(t, torch.Tensor)}
     return JSpmmPlan(fwd=arrays(tp.fwd), bwd=arrays(tp.bwd),
                      meta=JPlanMeta(**dataclasses.asdict(tp.meta)))
 

@@ -209,7 +209,8 @@ def test_body_codes_match_the_kernel():
              (item.split("=") for item in enum.split(","))}
     assert codes == {"kBodyScalar": _cuda.BODIES.index("scalar"),
                      "kBodyF32x4": _cuda.BODIES.index("f32x4"),
-                     "kBodyBf16x8": _cuda.BODIES.index("bf16x8")}
+                     "kBodyBf16x8": _cuda.BODIES.index("bf16x8"),
+                     "kBodyStaged": _cuda.BODIES.index("staged")}
     assert '#include "spmm_common.cuh"' in (
         _cuda.CSRC / "merge_spmm.cu").read_text()
 

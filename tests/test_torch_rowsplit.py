@@ -214,7 +214,8 @@ def test_body_codes_match_the_kernel():
              (item.split("=") for item in enum.split(","))}
     assert codes == {"kBodyScalar": _cuda.BODIES.index("scalar"),
                      "kBodyF32x4": _cuda.BODIES.index("f32x4"),
-                     "kBodyBf16x8": _cuda.BODIES.index("bf16x8")}
+                     "kBodyBf16x8": _cuda.BODIES.index("bf16x8"),
+                     "kBodyStaged": _cuda.BODIES.index("staged")}
     for name in ("merge_spmm.cu", "rowsplit_spmm.cu", "sddmm.cu"):
         assert "pick_body(" in (_cuda.CSRC / name).read_text(), name
 
