@@ -18,6 +18,9 @@ import torch
 
 NORM_JITTER = 0.1      # norm scales 1 + 0.1·N(0, 1), so a dropped scale shows
 BIAS_STD = 0.1
+# The keys the CPU tests cut, to these values (bench/tests/conftest.py).
+SMOKE = dict(num_hidden_layers=2, hidden_size=64, intermediate_size=128,
+             num_attention_heads=4, num_key_value_heads=2, vocab_size=512)
 
 
 def shapes(cfg: dict) -> dict:

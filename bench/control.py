@@ -4,10 +4,11 @@
         --seeds 11,12,13 [--points f32]
 
 For each seed: the cell's weights and the requests a run would compare
-(the same tape, the same sample), scored by the reference and by the
-reference one precision step lower (``reference.score(control=True)``),
-which stands in the program's place; with ``--points f32`` only the
-points the configuration states in float32 are lowered (to bfloat16).
+(the same tape, the same sample), scored by its architecture's reference
+and by that reference one precision step lower
+(``reference.score(control=True)``), which stands in the program's
+place; with ``--points f32`` only the points the configuration states in
+float32 are lowered (to bfloat16).
 Prints one JSON line a seed with the compared numbers; the full control
 has to fail the cell's limits.
 """
@@ -27,11 +28,10 @@ def control_numbers(cells, name: str, seed: int, seconds: float,
     import check
     import harness
     import loadgen
-    import reference
-    import weights
 
     cell = cells.workload(name)
     cfg = cells.config(cell["config"])
+    arch = cells.arch(cfg)
     traffic = cells.traffic(cell["traffic"])
     if traffic["loop"] == "open":
         tape = loadgen.open_tape(traffic, seconds, seed)
@@ -41,12 +41,12 @@ def control_numbers(cells, name: str, seed: int, seconds: float,
     prompts = [torch.from_numpy(loadgen.request_tokens(
         seed, r.index, r.length, cfg["vocab_size"])).to(device)
         for r in picked]
-    w = weights.make(cfg, seed, device)
-    ref = reference.score(w, cfg, prompts)
+    w = arch.weights.make(cfg, seed, device)
+    ref = arch.reference.score(w, cfg, prompts)
     worst = check.Worst()
-    reference.score(w, cfg, prompts,
-                    control="f32" if points == "f32" else True,
-                    on_logits=lambda i, lg: worst.add(lg, ref[i]))
+    arch.reference.score(w, cfg, prompts,
+                         control="f32" if points == "f32" else True,
+                         on_logits=lambda i, lg: worst.add(lg, ref[i]))
     ok, compared = check.verdict(worst, cfg["limits"], missing=0)
     return {"workload": name, "seed": seed, "points": points, "passes": ok,
             "compared": compared}

@@ -1,9 +1,12 @@
-"""Operations and compulsory bytes: the yardstick's arithmetic.
+"""Operations and compulsory bytes: the yardstick's arithmetic that every
+architecture shares.
 
 Frozen here so that a change to the program cannot move it.  The two SpMM
 functions are copies of the port's ``obs/roofline.py`` ones; the rest
-counts a dense decoder's forward from the configuration's shapes and the
-nonzeros that pruning keeps, with no padding.
+counts a pruned SwiGLU FFN's matrices and the bound of a forward's SpMM
+launches from their shapes and the nonzeros that pruning keeps, with no
+padding.  A model's own operations are its architecture's
+(``archs/<arch>/counts.py``).
 """
 from __future__ import annotations
 
@@ -50,25 +53,8 @@ def spmm_bound_s(m: int, k: int, n: int, nnz: int) -> float:
     return max(spmm_flops(nnz, n) / PEAK_F32_FLOPS, byts / PEAK_HBM_BYTES)
 
 
-def forward_spmm_bound_s(cfg: dict, tokens: int) -> float:
-    """Σ :func:`spmm_bound_s` over every FFN matrix of a forward of
-    ``tokens`` columns (a bucket's batch × length as launched)."""
-    one = sum(spmm_bound_s(m, k, tokens, nnz)
-              for _, m, k, nnz in ffn_matrices(cfg))
-    return cfg["num_hidden_layers"] * one
-
-
-def request_flops(cfg: dict, length: int) -> float:
-    """Model FLOPs of scoring one prompt of ``length`` tokens: the sparse
-    FFN at 2·nnz a token, the attention projections at 2·params a token
-    (biases not counted), causal attention (QKᵀ and PV over the keys at or
-    before each query), and the logits at 2·d·V a token."""
-    d, v = cfg["hidden_size"], cfg["vocab_size"]
-    h, kv = cfg["num_attention_heads"], cfg["num_key_value_heads"]
-    dh = cfg.get("head_dim") or d // h
-    proj = d * h * dh * 2 + d * kv * dh * 2
-    ffn = sum(nnz for *_, nnz in ffn_matrices(cfg))
-    pairs = length * (length + 1) // 2
-    attn = 2 * 2 * h * dh * pairs
-    per_layer = 2 * (proj + ffn) * length + attn
-    return cfg["num_hidden_layers"] * per_layer + 2.0 * d * v * length
+def forward_spmm_bound_s(launches: list, tokens: int) -> float:
+    """Σ :func:`spmm_bound_s` over the ``(m, k, nnz)`` row-split launches
+    of a forward of ``tokens`` columns (a bucket's batch × length as
+    launched)."""
+    return sum(spmm_bound_s(m, k, tokens, nnz) for m, k, nnz in launches)

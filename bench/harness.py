@@ -4,7 +4,12 @@
 (``bench/configs/<config>.json``) and its traffic mix
 (``bench/traffic/<traffic>.json``); each per-layer metric is a reader
 ``bench/metrics/<metric>.py`` with ``read(window) -> float | None``.  A
-later cell, mix or metric is new files and new entries, never an edit.
+configuration names its architecture under ``"arch"``, ``dense`` where
+the key is absent: the code in ``bench/archs/<arch>/`` that makes its
+weights (``weights.py``), scores it plainly (``reference.py``), builds the
+program over it (``system.py``) and counts its operations
+(``counts.py``).  A later cell, mix, metric or architecture is new files
+and new entries, never an edit.
 
 A run: weights from the seed on the device, the program built and warmed
 up (set-up), one window of traffic with tracing off, whose answers are
@@ -28,6 +33,7 @@ import sys
 import time
 from collections.abc import Callable
 from pathlib import Path
+from types import ModuleType
 
 import numpy as np
 import torch
@@ -35,21 +41,67 @@ import torch
 import check
 import devtrace
 import loadgen
-import reference
 import system
-import weights
 
 DRAIN_S = 60.0
 # The traced window's length at most: the profiler's stop and read take
 # ~32 µs a device operation, and the online cell runs ~90,000 a second.
 TRACE_SECONDS = 20.0
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro", "benchmarks")
+DEFAULT_ARCH = "dense"
 
 
 def loaded_forbidden() -> list:
     """Loaded modules whose top-level name, compared whole, is JAX or the
     JAX package (``repro_torch`` is not ``repro``)."""
     return sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
+
+
+def load(path: Path, name: str) -> ModuleType:
+    """The module at ``path`` under ``name``, kept in ``sys.modules`` (a
+    dataclass looks its module up there) and loaded anew where the name
+    holds another file."""
+    mod = sys.modules.get(name)
+    if mod is not None and getattr(mod, "__file__", None) == str(path):
+        return mod
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _module_name(kind: str, name: str) -> str:
+    return f"bench_{kind}_" + name.replace(".", "_").replace("-", "_")
+
+
+@dataclasses.dataclass(frozen=True)
+class Arch:
+    """A configuration's architecture: ``weights.make(cfg, seed, device)``
+    and ``weights.SMOKE``; ``reference.score(w, cfg, prompts, *,
+    control=False, on_logits=None)``, plain float32 torch that imports
+    nothing of the program; ``system.build(cfg, w, traffic)``, the warmed
+    server; ``counts.request_flops(cfg, length)`` and
+    ``counts.spmm_launches(cfg)``, the ``(m, k, nnz)`` of every row-split
+    launch of one forward in launch order."""
+
+    weights: ModuleType
+    reference: ModuleType
+    system: ModuleType
+    counts: ModuleType
+
+    @classmethod
+    def load(cls, bench: Path, name: str) -> Arch:
+        """The architecture ``name`` from ``bench/archs/<name>/``, its
+        modules under names of its own."""
+        where = bench / "archs" / name
+        if not where.is_dir():
+            raise SystemExit(f"no architecture {name!r}: {where} is not a "
+                             "directory")
+        parts = ("weights", "reference", "system", "counts")
+        return cls(*(load(where / f"{p}.py",
+                          _module_name("arch", f"{name}_{p}"))
+                     for p in parts))
 
 
 @dataclasses.dataclass
@@ -75,6 +127,11 @@ class Cells:
                 return json.loads((self.root / c["file"]).read_text())
         raise SystemExit(f"no config {name!r} in BENCHMARK.json")
 
+    def arch(self, cfg: dict) -> Arch:
+        """The architecture a configuration names, ``dense`` where it
+        names none."""
+        return Arch.load(self.bench, cfg.get("arch", DEFAULT_ARCH))
+
     def traffic(self, name: str) -> dict:
         return json.loads((self.bench / "traffic" / f"{name}.json")
                           .read_text())
@@ -93,13 +150,8 @@ class Cells:
                                  else [])]
 
     def reader(self, metric: str) -> Callable:
-        path = self.bench / "metrics" / f"{metric}.py"
-        spec = importlib.util.spec_from_file_location(
-            "bench_metric_" + metric.replace(".", "_").replace("-", "_"),
-            path)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        return mod.read
+        return load(self.bench / "metrics" / f"{metric}.py",
+                    _module_name("metric", metric)).read
 
 
 @dataclasses.dataclass
@@ -108,6 +160,7 @@ class Window:
 
     cell: dict
     config: dict
+    arch: Arch
     traffic: dict
     outcomes: list
     t_open: float
@@ -169,8 +222,8 @@ def _log(msg: str) -> None:
     print(f"[bench] {msg}", file=sys.stderr, flush=True)
 
 
-def measure(server, cell: dict, cfg: dict, traffic: dict, tape, *,
-            seed: int, seconds: float, device: str,
+def measure(server, cell: dict, cfg: dict, arch: Arch, traffic: dict,
+            tape, *, seed: int, seconds: float, device: str,
             keep: frozenset = frozenset(), trace: bool = False):
     """One window of the cell's traffic on the started server; returns the
     :class:`Window` and its client.  With ``trace`` the window runs under a
@@ -194,7 +247,7 @@ def measure(server, cell: dict, cfg: dict, traffic: dict, tape, *,
         t_stop = time.perf_counter()
     t_end = (client.t_close if traffic["loop"] == "open" else
              loadgen.closed_window_end(client.outcomes, client.t_close))
-    win = Window(cell, cfg, traffic, client.outcomes, client.t_open,
+    win = Window(cell, cfg, arch, traffic, client.outcomes, client.t_open,
                  client.t_close, c_open, c_close, calls, t_end)
     if trace:
         win.trace = cap.trace(client.t_open, t_end, client.spans)
@@ -210,16 +263,18 @@ def measure(server, cell: dict, cfg: dict, traffic: dict, tape, *,
 
 def run_cell(cells: Cells, name: str, *, seed: int, seconds: float,
              trace: bool, device: str, t_start: float,
-             build: Callable = system.build) -> dict:
-    """One run; returns the result line's object (``compared`` last)."""
+             build: Callable | None = None) -> dict:
+    """One run; returns the result line's object (``compared`` last).
+    ``build`` stands in for the architecture's ``system.build``."""
     cell = cells.workload(name)
     cfg = cells.config(cell["config"])
+    arch = cells.arch(cfg)
     traffic = cells.traffic(cell["traffic"])
     t0 = time.perf_counter()
-    w = weights.make(cfg, seed, device)
+    w = arch.weights.make(cfg, seed, device)
     _sync(device)
     t1 = time.perf_counter()
-    server = build(cfg, w, traffic)
+    server = (build or arch.system.build)(cfg, w, traffic)
     del w
     _log(f"{name}: process start to weights {t0 - t_start:.3f} s, weights "
          f"{t1 - t0:.3f} s, pruning, planning and warmup "
@@ -233,9 +288,9 @@ def run_cell(cells: Cells, name: str, *, seed: int, seconds: float,
     server.start()
     setup_s = time.perf_counter() - t_start
     _log(f"{name}: set-up {setup_s:.3f} s")
-    win, client = measure(server, cell, cfg, traffic, tape, seed=seed,
-                             seconds=seconds, device=device,
-                             keep=frozenset(r.index for r in picked))
+    win, client = measure(server, cell, cfg, arch, traffic, tape,
+                          seed=seed, seconds=seconds, device=device,
+                          keep=frozenset(r.index for r in picked))
     outcomes = list(win.outcomes)
     if trace:
         traced_s = min(seconds, TRACE_SECONDS)
@@ -243,9 +298,9 @@ def run_cell(cells: Cells, name: str, *, seed: int, seconds: float,
             tape = loadgen.open_tape(traffic, traced_s, seed)
         else:
             tape = loadgen.ClosedTape(traffic, seed)
-        win.traced, _ = measure(server, cell, cfg, traffic, tape,
-                                   seed=seed, seconds=traced_s,
-                                   device=device, trace=True)
+        win.traced, _ = measure(server, cell, cfg, arch, traffic, tape,
+                                seed=seed, seconds=traced_s,
+                                device=device, trace=True)
         outcomes += win.traced.outcomes
     mem = (torch.cuda.max_memory_allocated() if device == "cuda" else 0)
     metrics = {}
@@ -286,7 +341,7 @@ def run_cell(cells: Cells, name: str, *, seed: int, seconds: float,
     system.release(server)
     del server, client, win, outcomes
     gc.collect()
-    correct, compared = compare(cfg, seed, device, picked, kept,
+    correct, compared = compare(arch, cfg, seed, device, picked, kept,
                                 missing=lost)
     out = {"correct": correct, "attempted": attempted, "failed": failed,
            "metrics": metrics, "device": dev}
@@ -301,18 +356,18 @@ def _sync(device: str) -> None:
         torch.cuda.synchronize()
 
 
-def compare(cfg: dict, seed: int, device: str, picked: list,
+def compare(arch: Arch, cfg: dict, seed: int, device: str, picked: list,
             served: dict, *, missing: int) -> tuple[bool, dict]:
-    """Score the picked requests with the reference (weights made again
-    from the seed) and hold the served logits against its own;
-    ``missing`` requests went unanswered."""
-    w = weights.make(cfg, seed, device)
+    """Score the picked requests with the architecture's reference
+    (weights made again from the seed) and hold the served logits against
+    its own; ``missing`` requests went unanswered."""
+    w = arch.weights.make(cfg, seed, device)
     answered = [r for r in picked if r.index in served]
     prompts = [torch.from_numpy(loadgen.request_tokens(
         seed, r.index, r.length, cfg["vocab_size"])).to(device)
         for r in answered]
     worst = check.Worst()
-    reference.score(w, cfg, prompts, on_logits=lambda i, logits: worst.add(
-        served[answered[i].index], logits))
+    arch.reference.score(w, cfg, prompts, on_logits=lambda i, logits:
+                         worst.add(served[answered[i].index], logits))
     del w
     return check.verdict(worst, cfg["limits"], missing=missing)

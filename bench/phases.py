@@ -68,5 +68,6 @@ def step_mfu_calls(win) -> float | None:
     done = loadgen.completed_in_window(win.outcomes, win.t_open, win.t_close)
     if not dev or not done:
         return None
-    flops = sum(counts.request_flops(win.config, o.length) for o in done)
+    flops = sum(win.arch.counts.request_flops(win.config, o.length)
+                for o in done)
     return 100.0 * flops / (dev * counts.PEAK_BF16_FLOPS)

@@ -47,7 +47,8 @@ def step_mfu(win) -> float | None:
     done = win.completed()
     if not done:
         return None
-    flops = sum(counts.request_flops(win.config, o.length) for o in done)
+    flops = sum(win.arch.counts.request_flops(win.config, o.length)
+                for o in done)
     return 100.0 * flops / (win.seconds * counts.PEAK_BF16_FLOPS)
 
 
@@ -62,22 +63,23 @@ def step_mfu_busy(win) -> float | None:
     busy = t.trace.busy_s()
     if not done or busy <= 0:
         return None
-    flops = sum(counts.request_flops(t.config, o.length) for o in done)
+    flops = sum(t.arch.counts.request_flops(t.config, o.length)
+                for o in done)
     return 100.0 * flops / (busy * counts.PEAK_BF16_FLOPS)
 
 
 def rowsplit_roofline(win) -> float | None:
     """Σ bound over Σ device time (%) of the row-split launches of the
     program calls that ran wholly inside the traced window.  A call
-    launches one row-split kernel an FFN matrix, in layer order; where the
-    capture holds another count of them, there is nothing to read."""
+    launches the architecture's ``spmm_launches``; where the capture holds
+    another count of them, there is nothing to read."""
     if win.traced is None or win.traced.trace is None:
         return None
     win = win.traced
     tr = win.trace
     ks = tr.kernels(ROWSPLIT_KERNEL)
-    per_call = len(counts.ffn_matrices(win.config)) * \
-        win.config["num_hidden_layers"]
+    launches = win.arch.counts.spmm_launches(win.config)
+    per_call = len(launches)
     if not ks or len(ks) != per_call * len(win.calls):
         return None
     w0, w1 = tr.window
@@ -86,7 +88,7 @@ def rowsplit_roofline(win) -> float | None:
         grp = ks[i * per_call:(i + 1) * per_call]
         if grp[0][1] < w0 or grp[-1][2] > w1:
             continue
-        bound += counts.forward_spmm_bound_s(win.config, b * l)
+        bound += counts.forward_spmm_bound_s(launches, b * l)
         busy += sum(t1 - t0 for _, t0, t1 in grp) / 1e9
     return 100.0 * bound / busy if busy > 0 else None
 

@@ -63,7 +63,6 @@ def main(argv=None) -> int:
     import harness
     import loadgen
     import system
-    import weights
 
     if not torch.cuda.is_available():
         print("sweep: torch sees no CUDA device", file=sys.stderr)
@@ -71,10 +70,12 @@ def main(argv=None) -> int:
     cells = harness.Cells(ROOT)
     cell = cells.workload(args.workload)
     cfg = cells.config(cell["config"])
+    arch = cells.arch(cfg)
     traffic = cells.traffic(cell["traffic"])
     if traffic["loop"] != "open":
         raise SystemExit("sweep: the knee is an open loop's")
-    server = system.build(cfg, weights.make(cfg, args.seed, "cuda"), traffic)
+    server = arch.system.build(cfg, arch.weights.make(cfg, args.seed, "cuda"),
+                               traffic)
     server.start()
     knee = None
     try:

@@ -4,8 +4,9 @@
     python -m pytest -q -m cuda bench/tests    # on the card
 
 Cells at a size the CPU holds are made from the committed configuration
-files by :func:`smoke_root`: the same file with its widths and depth cut,
-in a copy of the benchmark under a temporary root.
+files by :func:`smoke_root`: the same file with the keys its architecture
+cuts (``archs/<arch>/weights.py``'s ``SMOKE``) cut, in a copy of the
+benchmark under a temporary root.
 """
 import json
 import shutil
@@ -20,14 +21,16 @@ for p in (str(BENCH), str(ROOT / "src")):
     if p not in sys.path:
         sys.path.insert(0, p)
 
-SMOKE = dict(num_hidden_layers=2, hidden_size=64, intermediate_size=128,
-             num_attention_heads=4, num_key_value_heads=2, vocab_size=512)
-CONFIGS = ("granite-3-2b", "qwen2-72b-stage8")
+import harness  # noqa: E402
+
+CELLS = harness.Cells(ROOT)
+CONFIGS = tuple(c["name"] for c in CELLS.spec["configs"])
+DENSE = harness.Arch.load(BENCH, "dense")
 
 
 def smoke_config(name: str) -> dict:
-    cfg = json.loads((BENCH / "configs" / f"{name}.json").read_text())
-    cfg.update(SMOKE, name=f"{name}-smoke")
+    cfg = CELLS.config(name)
+    cfg.update(CELLS.arch(cfg).weights.SMOKE, name=f"{name}-smoke")
     return cfg
 
 

@@ -1,7 +1,9 @@
-"""The yardstick's arithmetic against counts made by hand."""
+"""The yardstick's arithmetic against counts made by hand: the shared
+SpMM counts and the dense architecture's."""
 import pytest
 
 import counts
+from conftest import DENSE
 
 TINY = dict(hidden_size=4, intermediate_size=8, num_attention_heads=2,
             num_key_value_heads=1, vocab_size=10, num_hidden_layers=1,
@@ -49,7 +51,8 @@ def test_forward_bound_sums_every_matrix_of_every_layer():
     cfg = dict(TINY, num_hidden_layers=3)
     one = sum(counts.spmm_bound_s(m, k, 6, nnz)
               for _, m, k, nnz in counts.ffn_matrices(cfg))
-    assert counts.forward_spmm_bound_s(cfg, 6) == pytest.approx(3 * one)
+    launches = DENSE.counts.spmm_launches(cfg)
+    assert counts.forward_spmm_bound_s(launches, 6) == pytest.approx(3 * one)
 
 
 def test_request_flops_by_hand():
@@ -57,11 +60,11 @@ def test_request_flops_by_hand():
     # -> 48; FFN nonzeros: w1, w3 8 rows x 2 kept, w2 4 rows x 4 kept
     # -> 48; 3 tokens: 2 * 96 * 3 = 576; attention: 6 query-key pairs x
     # 2 heads x 2 dims x 2 (QK and PV) x 2 = 96; logits 2 * 4 * 10 * 3.
-    assert counts.request_flops(TINY, 3) == 576 + 96 + 240
+    assert DENSE.counts.request_flops(TINY, 3) == 576 + 96 + 240
 
 
 def test_request_flops_scales_with_layers():
-    one = counts.request_flops(TINY, 5) - 2 * 4 * 10 * 5
-    two = counts.request_flops(dict(TINY, num_hidden_layers=2), 5) \
+    one = DENSE.counts.request_flops(TINY, 5) - 2 * 4 * 10 * 5
+    two = DENSE.counts.request_flops(dict(TINY, num_hidden_layers=2), 5) \
         - 2 * 4 * 10 * 5
     assert two == 2 * one

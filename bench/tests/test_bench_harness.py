@@ -6,14 +6,14 @@ import json
 import pytest
 
 import harness
-import system
+from conftest import DENSE
 
 SEED = 2 ** 31 + 11
 ONLINE = "granite-3-2b-smoke.score-online"
 BACKLOG = "qwen2-72b-stage8-smoke.score-backlog"
 
 
-def run(root, name, *, trace=False, build=system.build, seconds=1.5):
+def run(root, name, *, trace=False, build=None, seconds=1.5):
     cells = harness.Cells(root)
     return harness.run_cell(cells, name, seed=SEED, seconds=seconds,
                             trace=trace, device="cpu", t_start=0.0,
@@ -57,10 +57,10 @@ def test_a_new_cell_and_metric_are_new_files_only(root):
 
 
 def faulty(fault):
-    """``system.build`` with the server's timed path broken: ``fault``
-    wraps each program call's output, or the tokens it packs."""
+    """The dense ``system.build`` with the server's timed path broken:
+    ``fault`` wraps each program call's output, or the tokens it packs."""
     def build(cfg, w, traffic):
-        server = system.build(cfg, w, traffic)
+        server = DENSE.system.build(cfg, w, traffic)
         call = server._call_program
 
         def broken(program, tokens):
@@ -103,7 +103,7 @@ def test_a_broken_timed_path_is_not_correct(root, cell, fault):
 
 def test_a_request_never_answered_is_not_correct(root):
     def build(cfg, w, traffic):
-        server = system.build(cfg, w, traffic)
+        server = DENSE.system.build(cfg, w, traffic)
         submit = server.submit
 
         def lose_first(tokens, **kw):

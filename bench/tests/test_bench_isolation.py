@@ -1,6 +1,8 @@
 """No module of the benchmark imports JAX or the JAX package, by top-level
 name compared whole (``repro_torch`` begins with ``repro`` and is not
-it); only ``system.py`` imports the program."""
+it); only the files named ``system.py`` (``bench/system.py`` and each
+``archs/<arch>/system.py``) import the program, and no architecture's
+reference imports the program or the benchmark's modules."""
 import ast
 from pathlib import Path
 
@@ -41,6 +43,21 @@ def test_no_jax_or_jax_package(path):
                          ids=lambda p: str(p.relative_to(BENCH)))
 def test_only_system_imports_the_program(path):
     assert PROGRAM not in imported_top_names(path)
+
+
+REFERENCES = sorted(BENCH.glob("archs/*/reference.py"))
+# The benchmark's own modules: ``system`` imports the program, and the
+# rest stand between it and the reference.
+BENCH_MODULES = ({p.stem for p in BENCH.glob("*.py")}
+                 | {p.stem for p in BENCH.glob("archs/*/*.py")})
+
+
+@pytest.mark.parametrize("path", REFERENCES,
+                         ids=lambda p: str(p.relative_to(BENCH)))
+def test_a_reference_imports_no_program(path):
+    names = imported_top_names(path)
+    assert "torch" in names
+    assert not names & ({PROGRAM} | BENCH_MODULES)
 
 
 def test_whole_name_comparison(tmp_path):

@@ -9,7 +9,6 @@ import math
 import pytest
 
 import harness
-import system
 
 SEED = 2 ** 31 + 29
 NEW = {"online": ("serve.host_gap_share.online", "serve.batch_wait_ms.online",
@@ -40,7 +39,7 @@ def test_traced_run_reports_the_program_phase_metrics(root, cell):
     with_device_share(root, cell)
     out = harness.run_cell(harness.Cells(root), cell, seed=SEED,
                            seconds=1.5, trace=True, device="cpu",
-                           t_start=0.0, build=system.build)
+                           t_start=0.0)
     assert out["correct"], out["compared"]
     m = {k: v["value"] for k, v in out["metrics"].items()}
     kind = cell.rsplit("-", 1)[-1]
