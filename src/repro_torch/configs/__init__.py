@@ -2,13 +2,14 @@
 
 The reference's ten architectures, selectable through ``--arch <id>`` in
 the launchers, and the input-shape cells each runs (``SHAPES``,
-``shape_cells``).
+``shape_cells``); the port's own (``PORT_ARCHS``: ``granite-4.0-h-micro``)
+by name and in the serve CLI.
 """
 from __future__ import annotations
 
 import importlib
 
-from .base import SHAPES, ModelConfig, ShapeConfig, TrainConfig
+from .base import SHAPES, HybridConfig, ModelConfig, ShapeConfig, TrainConfig
 
 _MODULES = {
     "olmoe-1b-7b": "olmoe_1b_7b",
@@ -25,14 +26,23 @@ _MODULES = {
 
 ARCHS = tuple(_MODULES)
 
+# The port's own architectures, beyond the reference's: reached by name,
+# kept out of ``ARCHS``.
+_PORT_MODULES = {
+    "granite-4.0-h-micro": "granite_4_0_h_micro",
+}
+PORT_ARCHS = tuple(_PORT_MODULES)
+
 # long_500k needs sub-quadratic sequence mixing:
 SUBQUADRATIC = ("mixtral-8x22b", "mamba2-1.3b", "recurrentgemma-2b")
 
 
 def _module(name: str):
-    if name not in _MODULES:
-        raise KeyError(f"unknown arch {name!r}; known: {list(_MODULES)}")
-    return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
+    mod = _MODULES.get(name) or _PORT_MODULES.get(name)
+    if mod is None:
+        raise KeyError(f"unknown arch {name!r}; known: "
+                       f"{list(_MODULES) + list(_PORT_MODULES)}")
+    return importlib.import_module(f"repro_torch.configs.{mod}")
 
 
 def get_config(name: str) -> ModelConfig:
@@ -52,5 +62,6 @@ def shape_cells(arch: str) -> list[str]:
     return cells
 
 
-__all__ = ["ARCHS", "SHAPES", "SUBQUADRATIC", "ModelConfig", "ShapeConfig",
-           "TrainConfig", "get_config", "get_smoke_config", "shape_cells"]
+__all__ = ["ARCHS", "PORT_ARCHS", "SHAPES", "SUBQUADRATIC", "HybridConfig",
+           "ModelConfig", "ShapeConfig", "TrainConfig", "get_config",
+           "get_smoke_config", "shape_cells"]

@@ -26,7 +26,8 @@ class ModelConfig:
     head_dim: int = 0           # 0 → d_model // num_heads
 
     # segments: ((pattern, repeat), ...) where pattern is a tuple of block
-    # types from {"attn", "moe", "ssd", "rglru"}; "attn" blocks carry an MLP.
+    # types from {"attn", "moe", "ssd", "rglru", "ssd_mlp"}; "attn",
+    # "rglru" and "ssd_mlp" blocks carry an MLP.
     segments: tuple[tuple[tuple[str, ...], int], ...] = ()
 
     # --- attention --------------------------------------------------------
@@ -85,6 +86,18 @@ class ModelConfig:
             raise ValueError(
                 f"segments cover {n} layers, config says {self.num_layers}")
 
+    # --- port-only knobs: class constants here, not fields, so the field
+    # list stays the reference's; :class:`HybridConfig` makes them fields.
+    # These values are today's numerics. ----------------------------------
+    norm_eps = 1e-6               # every RMSNorm / LayerNorm of the model
+    embedding_multiplier = 1.0    # embeddings times this
+    attention_multiplier = 0.0    # the score scale; 0 → head_dim ** -0.5
+    residual_multiplier = 1.0     # each branch times this before its add
+    logits_scaling = 1.0          # logits divided by this
+    nope = False                  # attention without positions
+    ssm_conv_bias = False         # a bias on the SSD block's causal conv
+    ssm_gated_norm = False        # rmsnorm(y · silu(z)) · w before out_proj
+
     @property
     def cdtype(self) -> torch.dtype:
         return getattr(torch, self.compute_dtype)
@@ -98,6 +111,25 @@ class ModelConfig:
         for pattern, reps in self.segments:
             out += list(pattern) * reps
         return out
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridConfig(ModelConfig):
+    """A :class:`ModelConfig` with the port-only knobs as fields: the µP
+    multipliers and normalisation epsilon of IBM's Granite 4.0 models,
+    NoPE attention, and the SSD block of Bamba / GraniteMoeHybrid (a bias
+    on its conv, a gated RMSNorm before ``out_proj``).  Each default is
+    the class constant of :class:`ModelConfig`, so a config that sets none
+    computes what a plain one does."""
+
+    norm_eps: float = 1e-6
+    embedding_multiplier: float = 1.0
+    attention_multiplier: float = 0.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
+    nope: bool = False
+    ssm_conv_bias: bool = False
+    ssm_gated_norm: bool = False
 
 
 @dataclasses.dataclass(frozen=True)

@@ -6,6 +6,8 @@ requests over shape-bucket programs.
     python -m repro_torch.launch.serve --arch mamba2-1.3b --gen 16
     python -m repro_torch.launch.serve --arch recurrentgemma-2b \
         --prune-ffn 0.25
+    python -m repro_torch.launch.serve --arch granite-4.0-h-micro \
+        --prune-ffn 0.25 --serve
     python -m repro_torch.launch.serve --arch olmoe-1b-7b --smoke --gen 4 \
         --device cpu
     python -m repro_torch.launch.serve --prune-ffn 0.25
@@ -55,7 +57,8 @@ import time
 import torch
 
 from repro_torch import engine, obs
-from repro_torch.configs import ARCHS, get_config, get_smoke_config
+from repro_torch.configs import (ARCHS, PORT_ARCHS, get_config,
+                                 get_smoke_config)
 from repro_torch.core import PlanPolicy, ShardSpec
 from repro_torch.core.config import resolve_counts
 from repro_torch.engine import cache_stats
@@ -66,7 +69,8 @@ from repro_torch.models import model as M
 from repro_torch.models import sparse as S
 from repro_torch.runtime import steps as R
 
-_PRUNABLE_BTYPES = ("attn", "rglru")   # blocks that own a dense "mlp"
+# blocks that own a dense "mlp"
+_PRUNABLE_BTYPES = ("attn", "rglru", "ssd_mlp")
 
 # Per-phase serving latency: "plan" (prune + plan build), "cold" (first
 # forward), "warm" (steady state), "generate" (a whole greedy decode).
@@ -158,15 +162,18 @@ def make_pruned_forward(cfg):
     """Full forward with SparseLinear MLPs: tokens (b, s) → f32 logits
     (b, s, vocab).  Routes through ``model.block_apply``, so only
     ``mlp_apply`` differs from the dense model.  The logits are
-    ``h.float() @ embed.T.float()``, a plain float32 matmul (TF32 off)."""
+    ``h.float() @ embed.T.float()``, a plain float32 matmul (TF32 off),
+    divided by ``cfg.logits_scaling`` where that is set."""
     btypes = cfg.block_types()
+    scaling = cfg.logits_scaling
 
     def fwd(params, blocks, tokens):
         h = M.embed_inputs(params, cfg, {"tokens": tokens})
         for btype, lp in zip(btypes, blocks):
             h, _, _ = M.block_apply(lp, btype, h, cfg)
-        h = L.norm_apply(params["final_norm"], h, cfg.norm)
-        return h.float() @ M.unembed_matrix(params, cfg).T.float()
+        h = L.norm_apply(params["final_norm"], h, cfg.norm, eps=cfg.norm_eps)
+        logits = h.float() @ M.unembed_matrix(params, cfg).T.float()
+        return logits if scaling == 1.0 else logits / scaling
 
     return fwd
 
@@ -363,7 +370,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(
         description="greedy decode, pruned-FFN scoring through the SpMM "
         "engine, or online serving of ragged requests")
-    ap.add_argument("--arch", choices=ARCHS, default="llama3.2-1b")
+    ap.add_argument("--arch", choices=ARCHS + PORT_ARCHS,
+                    default="llama3.2-1b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)

@@ -234,7 +234,8 @@ def _attend_q_chunk(q_blk, k_win, v_win, *, qpos0, start, kv_chunk,
 
 def flash_attention(q, k, v, *, q_offset: int = 0, window: int | None = None,
                     q_chunk: int = 512, kv_chunk: int = 512,
-                    softcap: float = 0.0) -> torch.Tensor:
+                    softcap: float = 0.0,
+                    scale: float | None = None) -> torch.Tensor:
     """Causal blockwise attention (the reference's ``flash_attention``):
     q (b, sq, h, dh), k/v (b, skv, kv, dh) → (b, sq, h, dh) in q's dtype.
 
@@ -246,11 +247,13 @@ def flash_attention(q, k, v, *, q_offset: int = 0, window: int | None = None,
     every key is masked is skipped (``SKIP_MASKED_BLOCKS``).  Under grad,
     each query chunk and each of its kv steps is checkpointed
     (non-reentrant), so the backward rebuilds one block's scores at a time
-    (the reference's two ``jax.checkpoint``)."""
+    (the reference's two ``jax.checkpoint``).  Scores are scaled by
+    ``scale``, ``dh ** -0.5`` where None."""
     b, sq, h, dh = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     g = h // kvh
-    scale = dh ** -0.5
+    if scale is None:
+        scale = dh ** -0.5
     q_chunk = min(q_chunk, sq)
     kv_chunk = min(kv_chunk, skv)
     if sq % q_chunk:
@@ -285,7 +288,8 @@ def attention_chunk(s: int) -> int:
 
 
 def causal_attention(q, k, v, *, softcap: float = 0.0,
-                     window: int | None = None) -> torch.Tensor:
+                     window: int | None = None,
+                     scale: float | None = None) -> torch.Tensor:
     """Causal GQA attention over a whole prefill: :func:`flash_attention`
     at the reference's chunk for the length (:func:`attention_chunk`).
     q (b, s, h, dh), k/v (b, s, kv, dh) → (b, s, h, dh) in q's dtype.  A
@@ -299,11 +303,11 @@ def causal_attention(q, k, v, *, softcap: float = 0.0,
     if extra:
         q, k, v = (F.pad(t, (0, 0, 0, 0, 0, extra)) for t in (q, k, v))
     out = flash_attention(q, k, v, softcap=softcap, window=window,
-                          q_chunk=c, kv_chunk=c)
+                          q_chunk=c, kv_chunk=c, scale=scale)
     return out[:, :s] if extra else out
 
 
-def _prefill_attention(q, k, v, *, softcap, window):
+def _prefill_attention(q, k, v, *, softcap, window, scale=None):
     """:func:`causal_attention`; under a mesh, on each rank's own part.
     Attention is independent across batch rows and heads, and ``_qkv``
     placed q, k and v alike over both with whole sequences, so each rank
@@ -311,12 +315,13 @@ def _prefill_attention(q, k, v, *, softcap, window):
     placements (otherwise DTensor would dispatch every op of every
     block)."""
     if not isinstance(q, DTensor):
-        return causal_attention(q, k, v, softcap=softcap, window=window)
+        return causal_attention(q, k, v, softcap=softcap, window=window,
+                                scale=scale)
     if not q.placements == k.placements == v.placements:
         raise ValueError(f"attention over a mesh: q, k, v placed "
                          f"{q.placements}, {k.placements}, {v.placements}")
     out = causal_attention(q.to_local(), k.to_local(), v.to_local(),
-                           softcap=softcap, window=window)
+                           softcap=softcap, window=window, scale=scale)
     return DTensor.from_local(out, q.device_mesh, q.placements,
                               shape=q.shape, stride=q.stride())
 
@@ -338,13 +343,15 @@ def _merge_heads(out):
 
 
 def decode_attention(q, k_cache, v_cache, pos, *, softcap: float = 0.0,
-                     window: int | None = None) -> torch.Tensor:
+                     window: int | None = None,
+                     scale: float | None = None) -> torch.Tensor:
     """One-token attention against a cache.  q (b, 1, h, dh); caches
     (b, S, kv, dh); pos (b,) the current position (the number of tokens
     already in the cache).  Attends over the whole cache, masked to
     ``kpos <= pos`` and, with a ``window`` shorter than the cache, to
     ``kpos > pos - window``: the keys ``pos + 1 - window … pos``, the ones
-    the reference slices out of the cache.
+    the reference slices out of the cache.  Scores are scaled by ``scale``,
+    ``dh ** -0.5`` where None.
 
     The reference's numerics: scores from the inputs' exact f32 values
     (bf16 products are exact in f32), softmax in f32, p cast to v's dtype
@@ -365,7 +372,7 @@ def decode_attention(q, k_cache, v_cache, pos, *, softcap: float = 0.0,
         q = whole(q, 2)
     qg = q.reshape(b, kvh, g, dh)
     sc = torch.einsum("bkgd,bskd->bkgs", qg.float(), k_cache.float()) \
-        * dh ** -0.5
+        * (dh ** -0.5 if scale is None else scale)
     if softcap:
         sc = softcap * torch.tanh(sc / softcap)
     kpos = torch.arange(s_cache, device=q.device)
@@ -398,18 +405,23 @@ def attention_apply(p, x, cfg, *, positions=None, cache=None, pos=None):
       over the cache;
     * ``s > 1`` with a cache: a prefill into an allocated cache — causal
       attention over the prompt, k and v padded with zeros to S.
+
+    ``cfg.nope`` leaves out RoPE; ``cfg.attention_multiplier``, where set,
+    scales the scores in place of ``head_dim ** -0.5``.
     """
     b, s, _ = x.shape
     q, k, v = _qkv(p, x, cfg)
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
-    if cfg.rope_theta:
+    if cfg.rope_theta and not cfg.nope:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     softcap = cfg.attn_logit_softcap
     window = None if cfg.attention == "full" else cfg.window
+    scale = cfg.attention_multiplier or None
     if cache is None:
-        out = _prefill_attention(q, k, v, softcap=softcap, window=window)
+        out = _prefill_attention(q, k, v, softcap=softcap, window=window,
+                                 scale=scale)
         new_cache = {"k": k, "v": v}
     elif s == 1:
         rows = torch.arange(b, device=x.device)
@@ -417,10 +429,11 @@ def attention_apply(p, x, cfg, *, positions=None, cache=None, pos=None):
         kc = cache["k"].index_put(idx, k[:, 0])
         vc = cache["v"].index_put(idx, v[:, 0])
         out = decode_attention(q, kc, vc, pos, softcap=softcap,
-                               window=window)
+                               window=window, scale=scale)
         new_cache = {"k": kc, "v": vc}
     else:
-        out = _prefill_attention(q, k, v, softcap=softcap, window=window)
+        out = _prefill_attention(q, k, v, softcap=softcap, window=window,
+                                 scale=scale)
         widths = (0, 0, 0, 0, 0, cache["k"].shape[1] - s)
         new_cache = {"k": pad(k, widths), "v": pad(v, widths)}
     out = _merge_heads(out) @ p["wo"].to(cfg.cdtype)

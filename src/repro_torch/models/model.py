@@ -6,6 +6,7 @@
   moe    — attention + mixture-of-experts FFN (merge-based dispatch)
   ssd    — Mamba2 state-space block
   rglru  — RG-LRU recurrent block + MLP (RecurrentGemma)
+  ssd_mlp — Mamba2 state-space mixer + MLP (Granite 4.0-H, the port's own)
 
 Parameters are a plain dict: ``embed`` (vocab, d) for token inputs,
 ``unembed`` when untied or when the inputs are embeddings, ``final_norm``,
@@ -16,6 +17,17 @@ tree), and the caches (KV for attention, conv and recurrent state for SSD
 and RG-LRU) are a list of per-layer dicts likewise.  Entry points:
 ``loss_and_aux`` (training), ``prefill`` and ``decode_step``; a batch
 holds ``tokens`` (b, s) or, for embedding inputs, ``embeds`` (b, s, d).
+
+The port-only knobs of ``configs.base.HybridConfig`` act here: every norm
+at ``norm_eps``, embeddings times ``embedding_multiplier``, each block's
+branch times ``residual_multiplier`` before its add, logits divided by
+``logits_scaling``; at their defaults each is left out, so a plain config
+computes the reference's ops.  Each block's mixer runs inside an
+``obs.span`` (``ssd_mixer``, ``rglru_mixer`` or ``attention``, category
+``model``): nothing while tracing is off, a ``torch.profiler`` range
+inside a capture.  No counter is kept in the forward: a bucket program's
+CUDA graph replays its kernels without running the Python that would
+count them.
 """
 from __future__ import annotations
 
@@ -23,6 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import obs
 from repro_torch.distributed.sharding import constrain
 from repro_torch.tree import paths
 
@@ -32,7 +45,8 @@ from . import losses
 from . import rglru as R
 from . import ssm as S
 
-BTYPES = ("attn", "moe", "ssd", "rglru")
+BTYPES = ("attn", "moe", "ssd", "rglru", "ssd_mlp")
+RECURRENT = ("ssd", "rglru", "ssd_mlp")
 
 
 def _check_btype(btype: str) -> None:
@@ -44,10 +58,11 @@ def init_block(gen: torch.Generator, btype: str, cfg) -> dict:
     _check_btype(btype)
     d, dev = cfg.d_model, gen.device
     p = {"ln1": L.init_norm(d, cfg.norm, torch.float32, dev)}
-    if btype == "ssd":
+    if btype in ("ssd", "ssd_mlp"):
         p["ssd"] = S.init_ssd(gen, cfg)
-        return p
-    if btype == "rglru":
+        if btype == "ssd":
+            return p
+    elif btype == "rglru":
         p["rec"] = R.init_rglru(gen, cfg)
     else:
         p["attn"] = L.init_attention(gen, cfg)
@@ -65,7 +80,7 @@ def init_block_cache(btype: str, cfg, batch: int, cache_len: int,
     compute dtype for attention; for SSD and RG-LRU the recurrent state,
     whose size does not depend on ``cache_len``."""
     _check_btype(btype)
-    if btype == "ssd":
+    if btype in ("ssd", "ssd_mlp"):
         return S.init_ssd_state(cfg, batch, device)
     if btype == "rglru":
         return R.init_rglru_state(cfg, batch, device)
@@ -115,42 +130,60 @@ def init_caches(cfg, batch: int, cache_len: int, device) -> list:
             for bt in cfg.block_types()]
 
 
+def _branch(out, cfg):
+    """A block's branch output as its residual add takes it: times
+    ``residual_multiplier`` where that is set."""
+    rm = cfg.residual_multiplier
+    return out if rm == 1.0 else out * rm
+
+
+def _norm(p, x, cfg):
+    return L.norm_apply(p, x, cfg.norm, eps=cfg.norm_eps)
+
+
 def block_apply(p, btype, x, cfg, *, positions=None, cache=None, pos=None,
                 use_kernel: bool | None = None):
     """One pre-norm block.  Attention blocks (sequential, or
     ``parallel_block``): attention, then the MLP or the MoE (``use_kernel``
-    as in ``moe.moe_apply``).  SSD: the state-space mixer.  RG-LRU: the
-    recurrent mixer, then the MLP.  A recurrent block decodes from its
-    cache when ``x`` is one token; a longer ``x`` is a prefill from a zero
-    state (the cache passed is only a shape donor).  Returns (x,
-    new_cache, aux)."""
+    as in ``moe.moe_apply``).  SSD: the state-space mixer, then, for
+    ``ssd_mlp``, the MLP.  RG-LRU: the recurrent mixer, then the MLP.  A
+    recurrent block decodes from its cache when ``x`` is one token; a
+    longer ``x`` is a prefill from a zero state (the cache passed is only a
+    shape donor).  Returns (x, new_cache, aux)."""
     _check_btype(btype)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    h = L.norm_apply(p["ln1"], x, cfg.norm)
+    h = _norm(p["ln1"], x, cfg)
     # Under a mesh the norm outputs of attention blocks take the residual
     # layout, so the backward's partial sums over the model axis are
     # reduced here, in the compute dtype (the reference's constraint).
     rs = cfg.residual_spec
-    if btype in ("ssd", "rglru"):
+    if btype in RECURRENT:
         state = cache if (cache is not None and x.shape[1] == 1) else None
+        if btype == "rglru":
+            with obs.span("rglru_mixer", cat="model"):
+                out, new_cache = R.rglru_apply(p["rec"], h, cfg, state=state)
+        else:
+            with obs.span("ssd_mixer", cat="model"):
+                out, new_cache = S.ssd_apply(p["ssd"], h, cfg, state=state)
+        x = x + _branch(out, cfg)
         if btype == "ssd":
-            out, new_cache = S.ssd_apply(p["ssd"], h, cfg, state=state)
-            return x + out, new_cache, aux
-        out, new_cache = R.rglru_apply(p["rec"], h, cfg, state=state)
-        x = x + out
-        h = L.norm_apply(p["ln2"], x, cfg.norm)
-        return x + L.mlp_apply(p["mlp"], h, cfg), new_cache, aux
+            return x, new_cache, aux
+        h = _norm(p["ln2"], x, cfg)
+        return x + _branch(L.mlp_apply(p["mlp"], h, cfg), cfg), new_cache, aux
     h = constrain(h, *rs)
-    attn_out, new_cache = L.attention_apply(p["attn"], h, cfg,
-                                            positions=positions, cache=cache,
-                                            pos=pos)
+    with obs.span("attention", cat="model"):
+        attn_out, new_cache = L.attention_apply(p["attn"], h, cfg,
+                                                positions=positions,
+                                                cache=cache, pos=pos)
+    attn_out = _branch(attn_out, cfg)
     if not cfg.parallel_block:
         x = x + attn_out
-        h = constrain(L.norm_apply(p["ln2"], x, cfg.norm), *rs)
+        h = constrain(_norm(p["ln2"], x, cfg), *rs)
     if btype == "moe":
         ffn_out, aux = MOE.moe_apply(p["moe"], h, cfg, use_kernel=use_kernel)
     else:
         ffn_out = L.mlp_apply(p["mlp"], h, cfg)
+    ffn_out = _branch(ffn_out, cfg)
     if cfg.parallel_block:
         return x + attn_out + ffn_out, new_cache, aux
     return x + ffn_out, new_cache, aux
@@ -184,17 +217,20 @@ def forward(params, cfg, h, *, positions=None, caches=None, pos=None,
 
 def embed_inputs(params, cfg, batch: dict, *, positions=None):
     """The batch's inputs (b, s, d) in the compute dtype: ``tokens``
-    looked up in ``embed`` (times sqrt(d) with ``embed_scale``), or
+    looked up in ``embed`` (times sqrt(d) with ``embed_scale``, times
+    ``embedding_multiplier`` in the table's dtype before the cast), or
     ``embeds`` as given; plus sinusoidal positions (``positions``,
     default 0 … s-1) when ``rope_theta`` is 0."""
     if cfg.input_mode == "tokens":
         h = F.embedding(batch["tokens"], _vocab_table(params["embed"], cfg))
+        if cfg.embedding_multiplier != 1.0:
+            h = h * cfg.embedding_multiplier
         h = h.to(cfg.cdtype)
         if cfg.embed_scale:
             h = h * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.cdtype)
     else:
         h = batch["embeds"].to(cfg.cdtype)
-    if cfg.rope_theta == 0.0:
+    if cfg.rope_theta == 0.0 and not cfg.nope:
         if positions is None:
             positions = torch.arange(h.shape[1], device=h.device)[None, :]
         h = h + L.sinusoidal(positions, cfg.d_model).to(h.dtype)
@@ -218,8 +254,10 @@ def unembed_matrix(params, cfg) -> torch.Tensor:
 
 def _logits(params, cfg, h) -> torch.Tensor:
     """h (b, s, d) after the final norm → f32 logits (b, s, vocab), by
-    the loss's rule (:func:`repro_torch.models.losses.logits`)."""
-    return losses.logits(h, unembed_matrix(params, cfg), cfg.logit_softcap)
+    the loss's rule (:func:`repro_torch.models.losses.logits`), divided
+    by ``logits_scaling`` where that is set."""
+    out = losses.logits(h, unembed_matrix(params, cfg), cfg.logit_softcap)
+    return out if cfg.logits_scaling == 1.0 else out / cfg.logits_scaling
 
 
 def loss_and_aux(params, cfg, batch, *, remat: bool = True,
@@ -233,7 +271,10 @@ def loss_and_aux(params, cfg, batch, *, remat: bool = True,
     trainer takes the same path off the TPU)."""
     h = embed_inputs(params, cfg, batch)
     h, _, aux = forward(params, cfg, h, remat=remat, use_kernel=False)
-    h = L.norm_apply(params["final_norm"], h, cfg.norm)
+    h = _norm(params["final_norm"], h, cfg)
+    if cfg.logits_scaling != 1.0:
+        # (h / s) @ Eᵀ is the scaled logits (exact for a power of two)
+        h = h / cfg.logits_scaling
     nll, cnt = losses.chunked_cross_entropy(
         h, unembed_matrix(params, cfg), batch["labels"], chunk=loss_chunk,
         logit_softcap=cfg.logit_softcap, mask=batch.get("mask"))
@@ -248,7 +289,7 @@ def prefill(params, cfg, batch: dict, *, cache_len: int | None = None):
     b, s, _ = h.shape
     caches = init_caches(cfg, b, cache_len or s, h.device)
     h, caches, _ = forward(params, cfg, h, caches=caches)
-    h_last = L.norm_apply(params["final_norm"], h[:, -1:], cfg.norm)
+    h_last = _norm(params["final_norm"], h[:, -1:], cfg)
     pos = torch.full((b,), s, dtype=torch.int64, device=h.device)
     return caches, _logits(params, cfg, h_last), pos
 
@@ -260,5 +301,5 @@ def decode_step(params, cfg, caches, batch: dict, pos):
     h = embed_inputs(params, cfg, batch, positions=positions)
     h, caches, _ = forward(params, cfg, h, positions=positions,
                            caches=caches, pos=pos)
-    h = L.norm_apply(params["final_norm"], h, cfg.norm)
+    h = _norm(params["final_norm"], h, cfg)
     return _logits(params, cfg, h), caches

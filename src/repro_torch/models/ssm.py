@@ -8,6 +8,12 @@ recurrence.  O(s·q) work, O(1)-state decode.
 Recurrence (per head, diagonal A):
     h_t = exp(Δ_t A) · h_{t-1} + Δ_t · B_t ⊗ x_t
     y_t = C_t · h_t + D · x_t
+
+Two port-only options of the config (``configs.base.HybridConfig``) make
+it the mixer of Bamba / GraniteMoeHybrid: ``ssm_conv_bias`` adds a bias to
+the causal conv before its SiLU, and ``ssm_gated_norm`` replaces the gate
+``y · silu(z)`` by ``rmsnorm(y · silu(z)) · w`` over all ``d_inner``
+channels (one group) at ``norm_eps``, in f32.
 """
 from __future__ import annotations
 
@@ -28,7 +34,7 @@ def init_ssd(gen: torch.Generator, cfg) -> dict:
     heads = din // cfg.ssm_head_dim
     n = cfg.ssm_state
     dev = gen.device
-    return {
+    p = {
         # fused input projection: [z (din), x (din), B (n), C (n), dt (heads)]
         "in_proj": normal_init(gen, (d, 2 * din + 2 * n + heads),
                                cfg.pdtype, d ** -0.5),
@@ -40,6 +46,12 @@ def init_ssd(gen: torch.Generator, cfg) -> dict:
         "dt_bias": torch.zeros(heads, dtype=torch.float32, device=dev),
         "out_proj": normal_init(gen, (din, d), cfg.pdtype, din ** -0.5),
     }
+    if cfg.ssm_conv_bias:
+        p["conv_bias"] = torch.zeros(din + 2 * n, dtype=cfg.pdtype,
+                                     device=dev)
+    if cfg.ssm_gated_norm:
+        p["norm"] = torch.ones(din, dtype=torch.float32, device=dev)
+    return p
 
 
 def _split_proj(p, u, cfg):
@@ -52,12 +64,26 @@ def _split_proj(p, u, cfg):
     return z, xbc, dt, din, n, heads
 
 
-def _causal_conv(xbc, conv, state=None):
-    """Depthwise causal conv along the sequence, then SiLU.  xbc (b, s, c),
-    conv (w, c); ``state`` (b, w-1, c) holds the trailing inputs for
-    decode.  Returns (out, new_state)."""
+def _causal_conv(xbc, conv, state=None, bias=None):
+    """Depthwise causal conv along the sequence, plus ``bias`` (c,) when
+    given, then SiLU.  xbc (b, s, c), conv (w, c); ``state`` (b, w-1, c)
+    holds the trailing inputs for decode.  Returns (out, new_state)."""
     out, new_state = causal_conv(xbc, conv, state)
+    if bias is not None:
+        out = out + bias
     return F.silu(out), new_state
+
+
+def _gate(y, z, p, cfg, dtype):
+    """y (f32) gated by silu(z), in ``dtype``: ``y · silu(z)``, or with
+    ``ssm_gated_norm`` the gated RMSNorm ``rmsnorm(y · silu(z)) · w``
+    computed in f32 and rounded once."""
+    gate = F.silu(z.to(torch.float32))
+    if not cfg.ssm_gated_norm:
+        return y.to(dtype) * gate.to(dtype)
+    g = y * gate
+    g = g * torch.rsqrt(g.pow(2).mean(-1, keepdim=True) + cfg.norm_eps)
+    return (g * p["norm"]).to(dtype)
 
 
 def _mac(t, mac):
@@ -135,9 +161,13 @@ def ssd_apply(p, u, cfg, *, state=None):
     hd = cfg.ssm_head_dim
     a = -torch.exp(p["a_log"])
     dt = F.softplus(dt.to(torch.float32) + p["dt_bias"])
+    bias = p.get("conv_bias")
+    if bias is not None:
+        bias = bias.to(xbc.dtype)
 
     if state is None:
-        xbc, conv_state = _causal_conv(xbc, p["conv"].to(xbc.dtype))
+        xbc, conv_state = _causal_conv(xbc, p["conv"].to(xbc.dtype),
+                                       bias=bias)
         x, b, c = torch.split(xbc, [din, n, n], dim=-1)
         bs, s, _ = x.shape
         xh = x.reshape(bs, s, heads, hd)
@@ -153,10 +183,10 @@ def ssd_apply(p, u, cfg, *, state=None):
             mac_dtype=cfg.cdtype)
         y = y[:, :s]
         y = y + p["d_skip"][None, None, :, None] * xh.to(torch.float32)
-        y = y.reshape(bs, s, din).to(u.dtype)
+        y = y.reshape(bs, s, din)
     else:
         xbc, conv_state = _causal_conv(xbc, p["conv"].to(xbc.dtype),
-                                       state["conv"])
+                                       state["conv"], bias)
         x, b, c = torch.split(xbc, [din, n, n], dim=-1)
         bs = x.shape[0]
         xh = x.reshape(bs, heads, hd).to(torch.float32)
@@ -168,9 +198,9 @@ def ssd_apply(p, u, cfg, *, state=None):
         y = torch.einsum("bn,bhpn->bhp", c[:, 0].to(torch.float32),
                          ssm_state)
         y = y + p["d_skip"][None, :, None] * xh
-        y = y.reshape(bs, 1, din).to(u.dtype)
+        y = y.reshape(bs, 1, din)
 
-    y = y * F.silu(z.to(torch.float32)).to(u.dtype)
+    y = _gate(y, z, p, cfg, u.dtype)
     out = y @ p["out_proj"].to(u.dtype)
     return out, {"conv": conv_state, "ssm": ssm_state}
 

@@ -19,14 +19,16 @@ entered only while tracing is on and a capture is running
 one costs a dispatcher call on each side.
 
 The emitting sites (``core/config.py``, ``engine/cache.py``,
-``core/spmm.py``, ``serving/server.py``, the launchers) use these
-categories:
+``core/spmm.py``, ``serving/server.py``, ``models/model.py``, the
+launchers) use these categories:
 
 * ``plan``     -- ``PlanPolicy.resolve`` (which ladder rung fired),
   ``plan.build``,
 * ``cache``    -- plan-cache hit / miss / eviction,
 * ``dispatch`` -- kernel dispatch (method, impl, dtypes, epilogue),
-* ``serve`` / ``train`` -- launcher and server request/step scopes.
+* ``serve`` / ``train`` -- launcher and server request/step scopes,
+* ``model``    -- each block's mixer (``attention``, ``ssd_mixer``,
+  ``rglru_mixer``).
 
 What a ``dispatch`` event counts: one per ``execute_plan`` call that Python
 runs.  An eager forward emits one per SpMM (48 a pruned Llama-3.2-1B

@@ -108,9 +108,14 @@ def test_train_trace_and_metrics(tmp_path, capsys):
     _run(train.main, ["--smoke", "--steps", "2", "--global-batch", "2",
                       "--seq-len", "16", "--device", "cpu",
                       "--trace-out", trace, "--metrics-out", metrics])
-    assert f"[train] trace: {trace} (2 events)" in capsys.readouterr().out
+    # each block's attention in its ``model`` span, run again by the
+    # backward's recompute (per-block remat): 2 steps x 2 x the layers
+    mixers = 2 * 2 * get_smoke_config("llama3.2-1b").num_layers
+    out = capsys.readouterr().out
+    assert f"[train] trace: {trace} ({2 + mixers} events)" in out
     _validate(trace, metrics, (), ("train_step_latency_us",))
     names, evs = _names(trace)
-    assert names["train.step"] == 2
-    assert [e["args"]["step"] for e in evs] == [0, 1]
-    assert {e["cat"] for e in evs} == {"train"}
+    assert names["train.step"] == 2 and names["attention"] == mixers
+    steps = [e for e in evs if e["cat"] == "train"]
+    assert [e["args"]["step"] for e in steps] == [0, 1]
+    assert {e["cat"] for e in evs} == {"train", "model"}
